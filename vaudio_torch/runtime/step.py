@@ -1,0 +1,186 @@
+"""The per-frame frame->audio step and its offline loop — the PyTorch port
+of :mod:`vaudio.runtime.step`.
+
+The recurrent DSP state is an explicit :class:`StepCarry` of tensors with
+the JAX package's fields and shapes; ``lax.scan`` becomes a Python loop.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from vaudio.config import AuralizerConfig, LiveParams
+from vaudio_torch import check_config, not_ported
+from vaudio_torch import device as pick_device
+from vaudio_torch.dsp.core import (agc_normalize, hann_window_norm,
+                                   irfft_from_half, overlap_add)
+from vaudio_torch.synth.spectrum import (SynthConstants, build_spectrum,
+                                         phase_accumulate)
+from vaudio_torch.vision.features import extract_features
+
+
+class StepCarry(NamedTuple):
+    """The recurrent DSP state of one audio stream."""
+
+    hues: torch.Tensor           # i32[16]       — EMA-smoothed hues
+    phases: torch.Tensor         # f32[16, 32]   — partial phase accumulators
+    prev_spectrum: torch.Tensor  # f32[F, 2] mono, f32[2, F, 2] stereo
+    ola_tail: torch.Tensor       # f32[nfft] mono, f32[2, nfft] stereo
+    running_max: torch.Tensor    # f32[]         — AGC envelope
+
+
+def init_carry(cfg: AuralizerConfig, device="cpu") -> StepCarry:
+    """The reference's cold start: hues 0, phases/spectrum/tail 0, running
+    max 1.0 (VisionEngine.swift:33, SoundEngine.swift:73)."""
+    spec_shape = (cfg.num_bins, 2) if cfg.channels == 1 \
+        else (cfg.channels, cfg.num_bins, 2)
+    tail_shape = (cfg.nfft,) if cfg.channels == 1 \
+        else (cfg.channels, cfg.nfft)
+    f32 = dict(dtype=torch.float32, device=device)
+    return StepCarry(
+        hues=torch.zeros((cfg.num_cells,), dtype=torch.int32, device=device),
+        phases=torch.zeros((cfg.num_cells, cfg.phase_stride), **f32),
+        prev_spectrum=torch.zeros(spec_shape, **f32),
+        ola_tail=torch.zeros(tail_shape, **f32),
+        running_max=torch.tensor(1.0, **f32),
+    )
+
+
+def carry_from_numpy(carry, device="cpu") -> StepCarry:
+    """A :class:`StepCarry` on ``device`` from numpy-convertible fields: a
+    dict, or a NamedTuple such as the JAX package's ``StepCarry``."""
+    fields = carry._asdict() if hasattr(carry, "_asdict") else dict(carry)
+    return StepCarry(**{
+        name: torch.as_tensor(np.array(fields[name]), device=device)
+        for name in StepCarry._fields})
+
+
+def carry_to_numpy(carry: StepCarry) -> Dict[str, np.ndarray]:
+    """The carry as a dict of numpy arrays (the JAX package's dtypes)."""
+    return {name: getattr(carry, name).cpu().numpy()
+            for name in StepCarry._fields}
+
+
+def default_params(cfg: AuralizerConfig) -> Dict[str, np.float32]:
+    return LiveParams().as_arrays()
+
+
+def params_to_device(params: Optional[Dict[str, Any]], cfg: AuralizerConfig,
+                     device) -> Dict[str, torch.Tensor]:
+    """Live params as f32 tensors on ``device``, so that every op on them
+    runs in f32 as in the JAX package."""
+    if params is None:
+        params = default_params(cfg)
+    return {k: torch.as_tensor(np.asarray(v, np.float32), device=device)
+            for k, v in params.items()}
+
+
+def synth_audio(spectrum, ola_tail, running_max, params: Dict[str, Any],
+                cfg: AuralizerConfig, window):
+    """irfft -> AGC -> overlap-add (SoundEngine.swift:403-428); stereo
+    shares one AGC/OLA gain and returns pcm as (hop, channels).
+    Returns (pcm, new_ola_tail, new_running_max)."""
+    signal = irfft_from_half(spectrum)
+    normalized, new_max = agc_normalize(signal, running_max,
+                                        params["attack"], params["release"])
+    pcm, new_tail = overlap_add(normalized, ola_tail, window)
+    if cfg.channels != 1:
+        pcm = pcm.T
+    return pcm, new_tail, new_max
+
+
+def frame_step(carry: StepCarry, frame, params: Dict[str, Any],
+               cfg: AuralizerConfig, consts: SynthConstants, window,
+               debug: bool = False):
+    """One video frame (H, W, 3) in, one audio hop out: vision -> phase
+    accumulation -> spectrum -> irfft/AGC/OLA.  ``params`` as from
+    :func:`params_to_device`.  Returns (new_carry, out) with out["pcm"]
+    f32[hop] (mono) or f32[hop, channels]; with ``debug`` also hues, grads
+    and spectrum."""
+    check_config(cfg)
+    mixing = params["spectrum_mixing"]
+    hues, grads = extract_features(frame, carry.hues, mixing, cfg)
+    phases = phase_accumulate(carry.phases, hues, cfg, consts)
+    spectrum = build_spectrum(hues, grads, phases, carry.prev_spectrum,
+                              mixing, cfg, consts, filter_params=params)
+    pcm, ola_tail, running_max = synth_audio(
+        spectrum, carry.ola_tail, carry.running_max, params, cfg, window)
+    new_carry = StepCarry(hues=hues, phases=phases, prev_spectrum=spectrum,
+                          ola_tail=ola_tail, running_max=running_max)
+    out: Dict[str, Any] = {"pcm": pcm}
+    if debug:
+        out.update(hues=hues, grads=grads, spectrum=spectrum)
+    return new_carry, out
+
+
+def check_frames(frames):
+    """A clip (T, H, W, 3) as a tensor, not yet moved (a numpy array is
+    shared, not copied)."""
+    if isinstance(frames, dict):
+        raise not_ported("planar YUV 4:2:0 frames")
+    frames = torch.as_tensor(np.asarray(frames)
+                             if not isinstance(frames, torch.Tensor)
+                             else frames)
+    if frames.ndim != 4 or frames.shape[-1] != 3:
+        raise ValueError(f"expected frames [T, H, W, 3]; got shape "
+                         f"{tuple(frames.shape)}")
+    return frames
+
+
+def frames_to_device(frames, device):
+    """A clip (T, H, W, 3) as a tensor on ``device`` (u8 stays u8, any
+    other type becomes f32)."""
+    frames = check_frames(frames)
+    if frames.dtype != torch.uint8:
+        frames = frames.to(torch.float32)
+    return frames.to(device)
+
+
+def run_offline(frames, cfg: AuralizerConfig,
+                params: Dict[str, Any] | None = None,
+                carry: StepCarry | None = None, debug: bool = False,
+                block: int = 1, device=None):
+    """Sonify a whole clip frame by frame (the JAX package's ``lax.scan``
+    as a Python loop), or, with ``block`` > 1, as blocked sub-chunks
+    through :func:`vaudio_torch.runtime.chunked.blocked_pipeline`.
+
+    Returns (audio f32[T*hop] or f32[T*hop, channels], final_carry,
+    debug_dict of stacked per-frame hues/grads/spectra when ``debug``).
+    """
+    dev = pick_device(device)
+    frames = frames_to_device(frames, dev)
+    params = params_to_device(params, cfg, dev)
+    carry = init_carry(cfg, dev) if carry is None \
+        else StepCarry(*(x.to(dev) for x in carry))
+    consts = SynthConstants.create(cfg, dev)
+    window = torch.as_tensor(hann_window_norm(cfg.nfft), device=dev)
+    T = frames.shape[0]
+    if block > 1 and T >= block:
+        # Imported here: runtime.chunked imports this module.
+        from vaudio_torch.runtime.chunked import blocked_pipeline, \
+            chunk_pipeline
+        main = T - T % block
+        carry, out = blocked_pipeline(carry, frames[:main], params, cfg,
+                                      consts, window, block=block,
+                                      debug=debug)
+        outs = [out]
+        if T > main:
+            carry, out = chunk_pipeline(carry, frames[main:], params, cfg,
+                                        consts, window, debug=debug)
+            outs.append(out)
+        outs = {k: torch.cat([o[k] for o in outs]) for k in outs[0]}
+    else:
+        per_frame = []
+        for t in range(T):
+            carry, out = frame_step(carry, frames[t], params, cfg, consts,
+                                    window, debug=debug)
+            per_frame.append(out)
+        outs = {k: torch.stack([o[k] for o in per_frame])
+                for k in per_frame[0]}
+    audio = outs.pop("pcm")
+    audio = audio.reshape(-1) if cfg.channels == 1 \
+        else audio.reshape(-1, cfg.channels)
+    return audio, carry, outs

@@ -1,0 +1,315 @@
+"""Frame feature extraction — the PyTorch port of
+:mod:`vaudio.vision.features`.
+
+Channel planes in image orientation, with the kernels' rotated indexing
+folded into cell arithmetic, as in the JAX package.  Every function takes
+a leading frame dimension where the JAX package ``vmap``s a per-frame one.
+"""
+
+from __future__ import annotations
+
+import functools
+from typing import Tuple
+
+import numpy as np
+import torch
+
+from vaudio.config import AuralizerConfig
+from vaudio_torch import not_ported
+from vaudio_torch.ops import pool_kernel
+
+_TWO_PI = float(np.float32(2.0 * np.pi))
+
+# Abramowitz & Stegun 4.4.46: acos(x) = sqrt(1-x) * P7(x) on [0, 1].
+_ACOS_COEFFS = tuple(float(np.float32(c)) for c in (
+    1.5707963050, -0.2145988016, 0.0889789874, -0.0501743046,
+    0.0308918810, -0.0170881256, 0.0066700901, -0.0012624911))
+
+
+# ---------------------------------------------------------------------------
+# Color space
+# ---------------------------------------------------------------------------
+
+def acos_poly(x):
+    """Polynomial arccos (max abs error 2e-8 rad over [-1, 1])."""
+    a = torch.abs(x)
+    p = a * _ACOS_COEFFS[-1] + _ACOS_COEFFS[-2]
+    for c in _ACOS_COEFFS[-3::-1]:
+        p = p * a + c
+    r = torch.sqrt(torch.clamp(1.0 - a, min=0.0)) * p
+    return torch.where(x >= 0.0, r, float(np.float32(np.pi)) - r)
+
+
+def rgb_to_hsi_planes(r, g, b, fast_acos: bool = False):
+    """RGB planes -> (H, S, I) planes (convolveFeatures.metal:14-38); the
+    acos argument is clamped to [-1, 1], grey pixels get hue 0."""
+    i = (r + g + b) * float(np.float32(1.0 / 3.0))
+    min_val = torch.minimum(r, torch.minimum(g, b))
+    one = torch.ones_like(i)
+    s = torch.where(i > 0.0, 1.0 - min_val / torch.where(i > 0.0, i, one),
+                    torch.zeros_like(i))
+
+    num = 0.5 * ((r - g) + (r - b))
+    den = torch.sqrt((r - g) * (r - g) + (r - b) * (g - b))
+    safe_den = torch.where(den != 0.0, den, one)
+    arg = torch.clamp(num / safe_den, -1.0, 1.0)
+    theta = acos_poly(arg) if fast_acos else torch.arccos(arg)
+    h = torch.where(b <= g, theta, _TWO_PI - theta) / _TWO_PI
+    h = torch.where(den != 0.0, h, torch.zeros_like(h))
+    return h, s, i
+
+
+# ---------------------------------------------------------------------------
+# Mip pyramid
+# ---------------------------------------------------------------------------
+
+@functools.lru_cache(maxsize=32)
+def _pool_matrix(n: int, level: int) -> np.ndarray:
+    """Banded box-averaging matrix: P[r, i] = 1/2^level for r in block i."""
+    m = n >> level
+    k = 1 << level
+    p = np.zeros((n, m), np.float32)
+    for i in range(m):
+        p[i * k:(i + 1) * k, i] = 1.0 / k
+    return p
+
+
+def mip_downsample_planes(planes, level: int, quantize: bool = False,
+                          scale: float = 1.0, quantize_int8: bool = False):
+    """(..., C, H, W) planes -> (..., C, H >> l, W >> l) box downsample
+    (VisionEngine.swift:152-173,189-192); ``scale`` folds the u8 1/255.
+
+    u8 planes take the exact integer path (:func:`ops.pool_kernel.
+    mip_pool_plain`, kernel K1's plain version); f32 planes the two banded
+    f32 matmuls of the JAX package.
+    """
+    h, w = planes.shape[-2:]
+    if (h >> level) == 0 or (w >> level) == 0:
+        raise ValueError(f"frame dims ({h},{w}) too small for mip {level}")
+    if quantize or quantize_int8:
+        raise not_ported("quantize_mips")
+    if level == 0:
+        planes = planes.to(torch.float32)
+        return planes * float(np.float32(scale)) if scale != 1.0 else planes
+    if planes.dtype == torch.uint8 and level <= 7:
+        return pool_kernel.mip_pool_plain(planes, level, scale)
+    dev = planes.device
+    pr = torch.as_tensor(_pool_matrix(h, level) * np.float32(scale),
+                         device=dev)
+    pc = torch.as_tensor(_pool_matrix(w, level), device=dev)
+    rows = torch.matmul(planes.to(torch.float32).transpose(-1, -2), pr)
+    return torch.matmul(rows.transpose(-1, -2), pc)
+
+
+# ---------------------------------------------------------------------------
+# 3x3 mode stencils
+# ---------------------------------------------------------------------------
+
+# The four zero-sum masks k[dy+1][dx+1] (convolveFeatures.metal:94-113).
+MODE_KERNELS = np.array(
+    [
+        [[-1, 0, -1], [0, 4, 0], [-1, 0, -1]],     # breathing
+        [[1, 0, -1], [1, 0, -1], [1, 0, -1]],      # "vertical tilt"
+        [[-1, -1, -1], [0, 0, 0], [1, 1, 1]],      # "horizontal tilt"
+        [[1, 0, -1], [0, 0, 0], [-1, 0, 1]],       # saddle
+    ],
+    dtype=np.float32,
+)
+
+
+def feature_stencil_plane(plane):
+    """The four 3x3 mode masks on (..., H, W) planes, clamp-to-edge
+    borders (the Metal sampler).  Returns f32[..., 4, H, W]."""
+    h, w = plane.shape[-2:]
+    dev = plane.device
+    rows = torch.arange(-1, h + 1, device=dev).clamp(0, h - 1)
+    cols = torch.arange(-1, w + 1, device=dev).clamp(0, w - 1)
+    padded = plane.to(torch.float32)[..., rows, :][..., cols]
+    outs = []
+    for m in range(4):
+        acc = torch.zeros_like(plane, dtype=torch.float32)
+        for dy in range(3):
+            for dx in range(3):
+                k = float(MODE_KERNELS[m, dy, dx])
+                if k == 0.0:
+                    continue
+                acc = acc + k * padded[..., dy:dy + h, dx:dx + w]
+        outs.append(acc)
+    return torch.stack(outs, dim=-3)
+
+
+# ---------------------------------------------------------------------------
+# Hue histogram
+# ---------------------------------------------------------------------------
+
+@functools.lru_cache(maxsize=32)
+def _cell_ids_unrotated(shape: Tuple[int, int], grid: int) -> np.ndarray:
+    """Per-pixel cell index in image orientation from the kernel's rotated
+    coordinates (convolveFeatures.metal:155-157): row = x grid // W,
+    col = (H-1-y) grid // H."""
+    hm, wm = shape
+    y, x = np.meshgrid(np.arange(hm), np.arange(wm), indexing="ij")
+    row = (x * grid) // wm
+    col = ((hm - 1 - y) * grid) // hm
+    return (row * grid + col).astype(np.int64)
+
+
+def _cell_tile_bounds(hm: int, wm: int, grid: int):
+    """Per-cell pixel rectangles in image orientation: (x_bands, y_bands),
+    each a (start, length) pair per band index."""
+    row_of_x = (np.arange(wm) * grid) // wm
+    col_of_y = ((hm - 1 - np.arange(hm)) * grid) // hm
+    xb = [(int(np.argmax(row_of_x == r)), int(np.sum(row_of_x == r)))
+          for r in range(grid)]
+    yb = [(int(np.argmax(col_of_y == c)), int(np.sum(col_of_y == c)))
+          for c in range(grid)]
+    return xb, yb
+
+
+def hue_bin_factorization(bins: int):
+    """``bins = f1 * f2`` with f2 the largest factor <= 16 (360 -> 24 x 15),
+    or (None, None) for a prime count."""
+    f2 = next((f for f in range(16, 1, -1) if bins % f == 0), None)
+    return (None, None) if f2 is None else (bins // f2, f2)
+
+
+def hue_histogram_planes(h, s, i, cfg: AuralizerConfig):
+    """Per-cell hue histogram over gated pixels (convolveFeatures.metal
+    :132-165) from (..., Hm, Wm) HSI planes: gate S > 0 and I > 0.1, bin
+    floor(H * 359).  An integer scatter-add; its counts equal those of the
+    JAX package's ``tiled`` method.  Returns f32[..., cells, bins]."""
+    bins = cfg.num_hue_bins
+    cells = cfg.num_cells
+    hm, wm = h.shape[-2:]
+    lead = h.shape[:-2]
+    n_hist = int(np.prod(lead, dtype=np.int64)) * cells * bins
+
+    gate = (s > cfg.saturation_gate) & (i > cfg.intensity_gate)
+    bin_idx = torch.clamp((h * float(bins - 1)).to(torch.int64), 0, bins - 1)
+    cell_idx = torch.as_tensor(_cell_ids_unrotated((hm, wm), cfg.grid_size),
+                               device=h.device)
+    frame = torch.arange(n_hist // (cells * bins), device=h.device) \
+        .reshape(lead + (1, 1))
+    flat = (frame * cells + cell_idx) * bins + bin_idx
+    flat = torch.where(gate, flat, torch.full_like(flat, n_hist))  # drop
+    hist = torch.zeros(n_hist + 1, dtype=torch.int32, device=h.device)
+    hist.scatter_add_(0, flat.reshape(-1),
+                      torch.ones(flat.numel(), dtype=torch.int32,
+                                 device=h.device))
+    return hist[:n_hist].reshape(lead + (cells, bins)).to(torch.float32)
+
+
+def hist_max_and_arg(hist):
+    """Per-cell (max count, argmax bin) with the LAST-maximum tie-break of
+    Swift's ``max(by:)`` (VisionEngine.swift:264)."""
+    bins = hist.shape[-1]
+    max_val = torch.amax(hist, dim=-1)
+    arg = (bins - 1 - torch.argmax(torch.flip(hist, dims=(-1,)), dim=-1)
+           ).to(torch.float32)
+    return max_val, arg
+
+
+def update_hues_from_stats(max_val, arg, prev_hues, mixing,
+                           cfg: AuralizerConfig):
+    """The gated, truncating hue EMA (VisionEngine.swift:255-271) — the
+    only serial piece of the vision pass."""
+    mixed = prev_hues.to(torch.float32) * mixing + arg * (1.0 - mixing)
+    new = mixed.to(torch.int32)          # truncation, as Swift Int32(Float)
+    return torch.where(max_val > float(np.float32(cfg.hist_count_gate)),
+                       new, prev_hues.to(torch.int32))
+
+
+def update_hues(hist, prev_hues, mixing, cfg: AuralizerConfig):
+    """Per-cell dominant hue, gated and EMA-smoothed: i32[cells]."""
+    max_val, arg = hist_max_and_arg(hist)
+    return update_hues_from_stats(max_val, arg, prev_hues, mixing, cfg)
+
+
+# ---------------------------------------------------------------------------
+# Gradient statistics
+# ---------------------------------------------------------------------------
+
+def cell_gradient_stats_planes(modes, cfg: AuralizerConfig):
+    """Per-cell (RMS breathing, mean|vtilt|, mean|htilt|, max|saddle|) of
+    intensity mode planes f32[..., 4, Hm, Wm] (VisionEngine.swift:273-295).
+
+    Cells are contiguous 1/16 slices of the flattened ROTATED buffer (the
+    reference quirk, cfg.linear_cell_grads): column bands when Wm % 16 == 0,
+    else an explicit rotation with the remainder in the last cell.
+    Returns f32[..., cells, 4].
+    """
+    if not cfg.linear_cell_grads:
+        raise not_ported("linear_cell_grads=False (the spatial gradient "
+                         "path)")
+    hm, wm = modes.shape[-2:]
+    lead = modes.shape[:-3]
+    cells = cfg.num_cells
+    p = hm * wm
+    per = p // cells
+    if wm % cells == 0:
+        cw = wm // cells
+        b = modes.reshape(lead + (4, hm, cells, cw))
+        dims = (-3, -1)
+        sq = torch.sum(b[..., 0, :, :, :] * b[..., 0, :, :, :], dim=dims)
+        ay = torch.sum(torch.abs(b[..., 1, :, :, :]), dim=dims)
+        az = torch.sum(torch.abs(b[..., 2, :, :, :]), dim=dims)
+        aw = torch.amax(torch.abs(b[..., 3, :, :, :]), dim=dims)
+        n = float(np.float32(hm * cw))
+        return torch.stack([torch.sqrt(sq / n), ay / n, az / n, aw], dim=-1)
+    flat = torch.rot90(modes, k=-1, dims=(-2, -1)).reshape(lead + (4, p))
+    stats = []
+    for c in range(cells):
+        start = c * per
+        end = p if c == cells - 1 else (c + 1) * per
+        sl = flat[..., start:end]
+        n = float(np.float32(end - start))
+        stats.append(torch.stack([
+            torch.sqrt(torch.sum(sl[..., 0, :] * sl[..., 0, :], dim=-1) / n),
+            torch.sum(torch.abs(sl[..., 1, :]), dim=-1) / n,
+            torch.sum(torch.abs(sl[..., 2, :]), dim=-1) / n,
+            torch.amax(torch.abs(sl[..., 3, :]), dim=-1),
+        ], dim=-1))
+    return torch.stack(stats, dim=-2)
+
+
+# ---------------------------------------------------------------------------
+# Full vision step
+# ---------------------------------------------------------------------------
+
+def frame_mip_planes(frames, cfg: AuralizerConfig):
+    """RGB frames (T, H, W, 3), u8 or f32 in [0, 1] -> f32 mip planes
+    (T, 3, H >> l, W >> l).  u8 frames go through kernel K1
+    (:func:`ops.pool_kernel.mip_pool`); the 1/255 folds into its epilogue."""
+    if isinstance(frames, dict):
+        raise not_ported("planar YUV 4:2:0 frames")
+    if cfg.quantize_mips or cfg.quantize_mips_int8:
+        raise not_ported("quantize_mips")
+    level = cfg.mip_level
+    if frames.dtype == torch.uint8 and 1 <= level <= 7:
+        return pool_kernel.mip_pool(frames, level, scale=1.0 / 255.0)
+    scale = 1.0 / 255.0 if frames.dtype == torch.uint8 else 1.0
+    return mip_downsample_planes(frames.permute(0, 3, 1, 2), level,
+                                 scale=scale)
+
+
+def frame_stats(frames, cfg: AuralizerConfig,
+                compute_debug_maps: bool = False):
+    """The stateless vision pass over a chunk: frames (T, H, W, 3) ->
+    (hist f32[T, 16, 360], grads f32[T, 16, 4])."""
+    if compute_debug_maps:
+        raise not_ported("the vision debug maps")
+    if cfg.use_pallas_vision:
+        raise not_ported("use_pallas_vision")
+    mip = frame_mip_planes(frames, cfg)
+    h, s, i = rgb_to_hsi_planes(mip[:, 0], mip[:, 1], mip[:, 2],
+                                fast_acos=cfg.fast_hue_acos)
+    hist = hue_histogram_planes(h, s, i, cfg)
+    grads = cell_gradient_stats_planes(feature_stencil_plane(i), cfg)
+    return hist, grads
+
+
+def extract_features(frames, prev_hues, mixing, cfg: AuralizerConfig):
+    """The full vision pass of one frame (H, W, 3) -> (hues i32[16],
+    grads f32[16, 4])."""
+    hist, grads = frame_stats(frames[None], cfg)
+    return update_hues(hist[0], prev_hues, mixing, cfg), grads[0]
