@@ -1,7 +1,8 @@
-"""The CUDA kernels K1 and K2 against their plain PyTorch versions, and the
-main path on the card against the CPU.  Needs an NVIDIA GPU and nvcc; every
-test skips without a card.  This file imports no jax, so it also runs
-where the JAX package is not installed:
+"""The CUDA kernels K1-K4 against their plain PyTorch versions, the main
+path on the card against the CPU, and the live stream on the card against
+the offline run on the card.  Needs an NVIDIA GPU and nvcc; every test
+skips without a card.  This file imports neither jax nor the JAX package,
+so it also runs where they are not installed:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 """
@@ -11,8 +12,11 @@ import pytest
 import torch
 
 from torch_frames import structured_frames
-from vaudio.config import AuralizerConfig
-from vaudio_torch.ops import pool_kernel, spectrum_kernel
+from vaudio_torch.config import AuralizerConfig
+from vaudio_torch.api import Auralizer
+from vaudio_torch.dsp.core import hann_window_norm
+from vaudio_torch.ops import (audio_kernel, pool_kernel, spectrum_kernel,
+                              vision_kernel)
 from vaudio_torch.runtime import chunked, step
 
 pytestmark = pytest.mark.cuda
@@ -111,3 +115,96 @@ def test_per_frame_step_on_the_card_matches_the_cpu(dev):
     a_cpu, _, d_cpu = step.run_offline(frames, cfg, debug=True, device="cpu")
     assert torch.equal(d_gpu["hues"].cpu(), d_cpu["hues"])
     assert float((a_gpu.cpu() - a_cpu).abs().max()) <= 1e-4
+
+
+@pytest.mark.parametrize("T", [64, 1])
+def test_k3_matches_plain_at_1080p(dev, gen, T):
+    """K3 (and K3' at T=1) on random f32 mips of a 1080p frame at mip 3
+    (135 x 240), with a dark and a grey band: the HSI is bit-identical to
+    the plain version's, so the counts are exact; the statistics within
+    atol 1e-6, rtol 1e-5 (another summation order)."""
+    cfg = AuralizerConfig()
+    mips = gen.uniform(0, 1, (T, 3, 135, 240)).astype(np.float32)
+    mips[:, :, :8] = 0.05
+    mips[:, :, 8:16] = 0.7
+    mips = torch.as_tensor(mips, device=dev)
+    before = vision_kernel.launches
+    hist, grads = vision_kernel.vision_stats(mips, cfg)
+    assert vision_kernel.launches == before + 1
+    ref_h, ref_g = vision_kernel.vision_stats_plain(mips, cfg)
+    assert hist.shape == (T, 16, 360) and grads.shape == (T, 16, 4)
+    assert torch.equal(hist, ref_h)
+    assert float(hist.sum()) > 0
+    torch.testing.assert_close(grads, ref_g, rtol=1e-5, atol=1e-6)
+
+
+def test_k3_is_deterministic(dev, gen):
+    cfg = AuralizerConfig()
+    mips = torch.as_tensor(gen.uniform(0, 1, (8, 3, 135, 240)).astype(
+        np.float32), device=dev)
+    a = vision_kernel.vision_stats(mips, cfg)
+    b = vision_kernel.vision_stats(mips, cfg)
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+
+
+@pytest.mark.parametrize("channels", [1, 2])
+@pytest.mark.parametrize("rmax,att,rel", [(1.0, 1.0, 1.0), (0.3, 0.5, 0.2),
+                                          (2.0, 0.0, 1.0)])
+def test_k4_matches_plain(dev, gen, channels, rmax, att, rel):
+    """pcm and tail within 1e-6, the running max within rtol 1e-6 (expf on
+    the card against the plain version's exp)."""
+    shape = (4096,) if channels == 1 else (channels, 4096)
+    sig, tail = (torch.as_tensor(gen.normal(size=shape).astype(np.float32),
+                                 device=dev) for _ in range(2))
+    window = torch.as_tensor(hann_window_norm(4096), device=dev)
+    scal = [torch.tensor(v, dtype=torch.float32, device=dev)
+            for v in (rmax, att, rel)]
+    before = audio_kernel.launches
+    got = audio_kernel.agc_overlap_add(sig, tail, window, *scal)
+    assert audio_kernel.launches == before + 1
+    ref = audio_kernel.agc_overlap_add_plain(sig, tail, window, *scal)
+    assert got[0].shape == shape[:-1] + (2048,)
+    for g, r in zip(got[:2], ref[:2]):
+        assert float((g - r).abs().max()) <= 1e-6
+    torch.testing.assert_close(got[2], ref[2], rtol=1e-6, atol=0)
+
+
+def test_k3_k4_wrappers_check_inputs(dev):
+    cfg = AuralizerConfig()
+    with pytest.raises(ValueError, match="contiguous f32"):
+        vision_kernel.vision_stats(torch.zeros((1, 3, 16, 16), device=dev,
+                                               dtype=torch.float64), cfg)
+    with pytest.raises(ValueError, match="does not take"):
+        vision_kernel.vision_stats(torch.zeros((1, 3, 16, 17), device=dev),
+                                   cfg)
+    z = torch.zeros(4096, device=dev)
+    with pytest.raises(ValueError, match="window"):
+        audio_kernel.agc_overlap_add(z, z, z[:2048], z[0], z[0], z[0])
+
+
+@pytest.mark.parametrize("chunk_frames", [1, 4])
+def test_live_stream_on_the_card_equals_run_offline(dev, chunk_frames):
+    """The live configuration (K3 and K4 on) streamed on the card: the
+    pulled PCM equals the offline run on the card; per frame all four
+    kernels launch, in chunks K1, K2 and K3."""
+    cfg = AuralizerConfig(channels=2, use_pallas=True,
+                          use_pallas_vision=True, ring_buffer_frames=64)
+    frames = structured_frames(3, 10, 192, 256)
+    mods = (pool_kernel, spectrum_kernel, vision_kernel, audio_kernel)
+    before = [m.launches for m in mods]
+    aur = Auralizer(source=frames, config=cfg, device=dev,
+                    chunk_frames=chunk_frames)
+    aur.run_until_exhausted(timeout=60)
+    launched = [m.launches - b for m, b in zip(mods, before)]
+    got = aur.pull(10 * 2048 * 2)
+    if chunk_frames == 1:
+        assert launched == [10, 10, 10, 10]
+        ref, _, _ = step.run_offline(frames, cfg, device=dev)
+    else:
+        assert launched == [4, 4, 4, 2]
+        head, carry, _ = chunked.run_offline_batched(frames[:8], cfg,
+                                                     chunk=4, device=dev)
+        tail, _, _ = step.run_offline(frames[8:], cfg, carry=carry,
+                                      device=dev)
+        ref = torch.cat([head, tail])
+    np.testing.assert_array_equal(got, ref.cpu().numpy().reshape(-1))

@@ -12,7 +12,7 @@ import torch
 
 import jax.numpy as jnp
 
-from vaudio.config import AuralizerConfig
+from vaudio_torch.config import AuralizerConfig
 from vaudio.dsp import core as jd
 from vaudio_torch.dsp import core as td
 

@@ -1,8 +1,10 @@
-"""The plain PyTorch versions of kernels K1 and K2 against the TPU kernels
+"""The plain PyTorch versions of kernels K1-K4 against the TPU kernels
 they replace (Pallas in interpret mode, as tests/test_pallas.py runs them),
 and the wrappers' device routing.  The CUDA kernels themselves are held
 to these plain versions on the card (tests/test_torch_cuda.py,
 chip_smoke.py)."""
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -10,12 +12,16 @@ import torch
 
 import jax.numpy as jnp
 
-from vaudio.config import AuralizerConfig
+from vaudio_torch.config import AuralizerConfig
+from vaudio.dsp import hann_window_norm
+from vaudio.ops import vision_kernel as jax_vision_kernel
+from vaudio.ops.audio_kernel import agc_overlap_add as jax_agc_overlap_add
 from vaudio.ops.pool_kernel import mip_pool_pallas
 from vaudio.ops.spectrum_kernel import hann_peak_weighted_sum_batched
 from vaudio.runtime.chunked import _batched_contraction
 from vaudio.synth import SynthConstants as JaxConsts
-from vaudio_torch.ops import _build, pool_kernel, spectrum_kernel
+from vaudio_torch.ops import (_build, audio_kernel, pool_kernel,
+                              spectrum_kernel, vision_kernel)
 
 CFG = AuralizerConfig()
 
@@ -87,14 +93,129 @@ def test_k2_plain_matches_xla_contraction(rng, K):
     np.testing.assert_allclose(got, ref, atol=1e-5)
 
 
+def k3_mips(rng, shape, bands=False):
+    """f32 mip planes (3, hm, wm) in [0, 1]; with ``bands`` a dark band
+    (fails the intensity gate) and a grey band (S == 0, hue 0)."""
+    mip = rng.uniform(0, 1, (3,) + shape).astype(np.float32)
+    if bands:
+        mip[:, :8, :] = 0.05
+        mip[:, 8:16, :] = 0.7
+    return mip
+
+
+@pytest.mark.parametrize("shape,bands", [((16, 16), False),
+                                         ((34, 48), False),
+                                         ((32, 32), True)])
+def test_k3_plain_matches_pallas_kernel(rng, shape, bands):
+    """K3' (one frame) against the TPU kernel: histogram counts exact,
+    gradient statistics within atol 1e-6, rtol 1e-5 (the band of
+    tests/test_pallas.py:213-215; the sums are taken in another order)."""
+    mip = k3_mips(rng, shape, bands)
+    ref_h, ref_g = jax_vision_kernel.vision_stats_pallas(
+        jnp.asarray(mip), CFG, interpret=True)
+    got_h, got_g = vision_kernel.vision_stats(t(mip[None]), CFG)
+    assert got_h.shape == (1, 16, 360) and got_g.shape == (1, 16, 4)
+    np.testing.assert_array_equal(got_h[0].numpy(), np.asarray(ref_h))
+    assert got_h.sum() > 0
+    np.testing.assert_allclose(got_g[0].numpy(), np.asarray(ref_g),
+                               rtol=1e-5, atol=1e-6)
+
+
+def test_k3_plain_matches_batched_pallas_kernel(rng):
+    """K3 on a batch of 6 frames against the TPU kernel's frame-blocked
+    form: counts exact, statistics within atol 1e-6, rtol 1e-5."""
+    mips = np.stack([k3_mips(rng, (32, 32), bands=k % 2 == 1)
+                     for k in range(6)])
+    ref_h, ref_g = jax_vision_kernel.vision_stats_pallas_batched(
+        jnp.asarray(mips), CFG, interpret=True)
+    got_h, got_g = vision_kernel.vision_stats(t(mips), CFG)
+    np.testing.assert_array_equal(got_h.numpy(), np.asarray(ref_h))
+    np.testing.assert_allclose(got_g.numpy(), np.asarray(ref_g), rtol=1e-5,
+                               atol=1e-6)
+
+
+@pytest.mark.parametrize("hm,wm,cfg", [
+    (16, 17, CFG), (1, 16, CFG), (16, 1, CFG), (2, 16, CFG), (16, 16, CFG),
+    (135, 240, CFG), (270, 480, CFG), (180, 320, CFG),
+    (16, 16, dataclasses.replace(CFG, linear_cell_grads=False)),
+    (16, 16, dataclasses.replace(CFG, num_hue_bins=359)),
+])
+def test_k3_supports_matches_jax(hm, wm, cfg):
+    """The port's gate is the JAX package's (test_pallas.py:232-238 and the
+    size bound: the 4K mip is refused, 1080p and 1440p are taken)."""
+    assert vision_kernel.supports(hm, wm, cfg) == \
+        jax_vision_kernel.supports(hm, wm, cfg)
+
+
+K4_TRIPLES = [(1.0, 1.0, 1.0), (0.3, 0.5, 0.2), (2.0, 0.0, 1.0)]
+
+
+@pytest.mark.parametrize("channels", [1, 2])
+@pytest.mark.parametrize("case", range(len(K4_TRIPLES) + 1))
+def test_k4_plain_matches_pallas_kernel(rng, channels, case):
+    """K4 against the TPU kernel on the (running max, attack, release)
+    triples of tests/test_pallas.py:111-112 and a zero signal: pcm and tail
+    within 1e-6, the new running max within rtol 1e-6."""
+    shape = (4096,) if channels == 1 else (channels, 4096)
+    window = hann_window_norm(4096)
+    if case == len(K4_TRIPLES):
+        sig = np.zeros(shape, np.float32)
+        tail = np.zeros(shape, np.float32)
+        rmax, att, rel = 1.0, 1.0, 1.0
+    else:
+        sig = rng.normal(size=shape).astype(np.float32)
+        tail = rng.normal(size=shape).astype(np.float32)
+        rmax, att, rel = K4_TRIPLES[case]
+    scal = [np.float32(v) for v in (rmax, att, rel)]
+    ref = jax_agc_overlap_add(jnp.asarray(sig), jnp.asarray(tail),
+                              jnp.asarray(window),
+                              *(jnp.float32(v) for v in scal),
+                              interpret=True)
+    got = audio_kernel.agc_overlap_add(t(sig), t(tail), t(window),
+                                       *(torch.tensor(v) for v in scal))
+    assert got[0].shape == shape[:-1] + (2048,)
+    assert got[1].shape == shape and got[2].shape == ()
+    assert np.all(np.isfinite(got[0].numpy()))
+    np.testing.assert_allclose(got[0].numpy(), np.asarray(ref[0]), atol=1e-6)
+    np.testing.assert_allclose(got[1].numpy(), np.asarray(ref[1]), atol=1e-6)
+    np.testing.assert_allclose(float(got[2]), float(ref[2]), rtol=1e-6)
+
+
+def test_k4_plain_equals_the_unfused_tail(rng):
+    """Without K4 the per-frame step runs dsp.agc_normalize + overlap_add,
+    whose sigmoid divides by g1 - g0 rounded once from f64; K4 (as the TPU
+    kernel) subtracts the f32-rounded bounds.  Both give the same f32
+    value, and the two tails agree bit for bit."""
+    from vaudio_torch.dsp.core import agc_normalize, overlap_add
+    sig = t(rng.normal(size=(2, 4096)).astype(np.float32))
+    tail = t(rng.normal(size=(2, 4096)).astype(np.float32))
+    window = t(hann_window_norm(4096))
+    one = torch.tensor(np.float32(1.0))
+    att = torch.tensor(np.float32(0.5))
+    pcm, new_tail, new_max = audio_kernel.agc_overlap_add(
+        sig, tail, window, one, att, att)
+    norm, max2 = agc_normalize(sig, one, att, att)
+    pcm2, tail2 = overlap_add(norm, tail, window)
+    assert float(new_max) == float(max2)
+    np.testing.assert_array_equal(pcm.numpy(), pcm2.numpy())
+    np.testing.assert_array_equal(new_tail.numpy(), tail2.numpy())
+    assert audio_kernel._G1_MINUS_G0 == np.float32(
+        (1.0 / (1.0 + np.exp(-1.0))) - (1.0 / (1.0 + np.exp(1.0))))
+
+
 def test_cpu_tensors_take_the_plain_versions_without_counting(rng):
     frames = t(rng.integers(0, 256, (1, 32, 32, 3), dtype=np.uint8))
     pf, scale, w = k2_inputs(rng, 1, 2)
-    before = (pool_kernel.launches, spectrum_kernel.launches)
+    mods = (pool_kernel, spectrum_kernel, vision_kernel, audio_kernel)
+    before = [m.launches for m in mods]
     pool_kernel.mip_pool(frames, 3, 1 / 255.0)
     spectrum_kernel.hann_peak_weighted_sum(t(CFG.bin_frequencies()), t(pf),
                                            t(scale), t(w))
-    assert (pool_kernel.launches, spectrum_kernel.launches) == before
+    vision_kernel.vision_stats(t(k3_mips(rng, (16, 16))[None]), CFG)
+    z = torch.zeros(4096)
+    audio_kernel.agc_overlap_add(z, z, z, torch.tensor(1.0),
+                                 torch.tensor(1.0), torch.tensor(1.0))
+    assert [m.launches for m in mods] == before
 
 
 def test_wrappers_raise_for_a_device_without_kernel():
@@ -109,6 +230,13 @@ def test_wrappers_raise_for_a_device_without_kernel():
             f, torch.empty((1, 4), device="meta"),
             torch.empty((1, 4), device="meta"),
             torch.empty((1, 4, 2), device="meta"))
+    with pytest.raises(ValueError, match="no kernel"):
+        vision_kernel.vision_stats(torch.empty((1, 3, 16, 16),
+                                               device="meta"), CFG)
+    sig = torch.empty(4096, device="meta")
+    with pytest.raises(ValueError, match="no kernel"):
+        audio_kernel.agc_overlap_add(sig, sig, sig, *(torch.empty(
+            (), device="meta") for _ in range(3)))
 
 
 def test_build_is_keyed_by_the_sources():
@@ -116,6 +244,7 @@ def test_build_is_keyed_by_the_sources():
     sources and flags>/; nothing is compiled to compute it."""
     path = _build.library_path()
     assert path.parent.parent == _build.BUILD_ROOT
-    assert {p.name for p in _build._sources()} >= {"pool_kernel.cu",
-                                                   "spectrum_kernel.cu"}
+    assert {p.name for p in _build._sources()} >= {
+        "pool_kernel.cu", "spectrum_kernel.cu", "vision_kernel.cu",
+        "audio_kernel.cu"}
     assert path == _build.library_path()

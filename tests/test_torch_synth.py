@@ -9,7 +9,7 @@ import torch
 
 import jax.numpy as jnp
 
-from vaudio.config import AuralizerConfig, LiveParams
+from vaudio_torch.config import AuralizerConfig, LiveParams
 from vaudio.synth import spectrum as js
 from vaudio_torch.synth import spectrum as ts
 

@@ -8,7 +8,7 @@ import torch
 import jax.numpy as jnp
 
 from torch_frames import structured_frames
-from vaudio.config import AuralizerConfig
+from vaudio_torch.config import AuralizerConfig
 from vaudio.vision import features as jf
 from vaudio_torch.vision import features as tf
 
@@ -74,6 +74,16 @@ def test_stencils_are_exact(rng):
     for k in range(2):
         np.testing.assert_array_equal(
             got[k], np.asarray(jf.feature_stencil_plane(plane[k])))
+
+
+def test_kernel_order_stencils_match_the_masks(rng):
+    """intensity_stencils (the vision kernel's sums, K3's plain version)
+    against the mask form: the same values up to the order of the sums,
+    within 1e-6 on [0, 1] planes; edges clamped alike."""
+    plane = t(rng.uniform(0, 1, (2, 23, 32)).astype(np.float32))
+    np.testing.assert_allclose(tf.intensity_stencils(plane).numpy(),
+                               tf.feature_stencil_plane(plane).numpy(),
+                               atol=1e-6)
 
 
 @pytest.mark.parametrize("hm,wm", [(24, 32), (135, 240), (33, 47)])

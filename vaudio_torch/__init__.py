@@ -1,21 +1,25 @@
 """vaudio_torch — the PyTorch/CUDA port of :mod:`vaudio`.
 
-Same configuration (:class:`vaudio.config.AuralizerConfig`,
-:class:`vaudio.config.LiveParams`), same layout and names as the JAX
-package, held to it by ``tests/test_torch_*.py``.  Plain tensor code is
-PyTorch; the two kernels on the chunk-batched path are hand-written CUDA C++
-for Hopper (``csrc/``): the u8 mip pool (``ops.pool_kernel``) and the
-Hann-peak spectrum contraction (``ops.spectrum_kernel``).  A CPU tensor runs
+Same configuration (:class:`vaudio_torch.config.AuralizerConfig` and
+:class:`~vaudio_torch.config.LiveParams`, copies of the JAX package's),
+same layout and names as the JAX package, held to it by
+``tests/test_torch_*.py``.  Plain tensor code is PyTorch; the four kernels
+are hand-written CUDA C++ for Hopper (``csrc/``): the u8 mip pool
+(``ops.pool_kernel``), the Hann-peak spectrum contraction
+(``ops.spectrum_kernel``), the vision epilogue (``ops.vision_kernel``) and
+the AGC + overlap-add audio tail (``ops.audio_kernel``).  A CPU tensor runs
 each kernel's plain PyTorch version.
 
-Importing this package never imports jax.
+The entry points run on the card unless the caller asks for the CPU
+(``device="cpu"``).  Importing or running this package never imports jax
+nor the JAX package ``vaudio``.
 """
 
 from __future__ import annotations
 
 import torch
 
-from vaudio.config import AuralizerConfig, LiveParams
+from vaudio_torch.config import AuralizerConfig, LiveParams
 
 # TF32 keeps ~3 decimal digits: an f32 matmul or convolution in TF32 would
 # break every f32 band the port is held to (the GPU form of the TPU's
@@ -23,8 +27,8 @@ from vaudio.config import AuralizerConfig, LiveParams
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
-# Features outside the first slice, each with the ROADMAP item that ports
-# it.  The AuralizerConfig flags among them are named as the fields are.
+# Features not ported yet, each with the ROADMAP item that ports it.  The
+# AuralizerConfig flags among them are named as the fields are.
 _NOT_PORTED = {
     "use_phase_lut": "queue 1 item 6.1",
     "use_matmul_irfft": "queue 1 item 6.2",
@@ -35,16 +39,26 @@ _NOT_PORTED = {
     "the vision debug maps": "queue 1 item 6.6",
     "linear_cell_grads=False (the spatial gradient path)":
         "queue 1 item 6.7",
-    "use_pallas_vision": "queue 2 K3",
-    "use_pallas_audio": "queue 2 K4",
+    "sonify(debug=True)": "queue 1 item 8",
+    "inspect_frame": "queue 1 item 8",
+    "attach_control (the live control channel)": "queue 1 item 9.3",
+    "live_debug": "queue 1 item 9.3",
+    "serve (the live HTTP server)": "queue 1 item 9.3",
+    "the orthomodes model": "queue 1 item 10",
 }
 
 
 def device(spec=None) -> torch.device:
-    """The device to run on: ``spec`` as given, else CUDA when present."""
+    """The device to run on: ``spec`` as given, else CUDA.  There is no
+    quiet fall-back to the CPU: without a card, ask for ``"cpu"``."""
     if spec is not None:
         return torch.device(spec)
-    return torch.device("cuda" if torch.cuda.is_available() else "cpu")
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "vaudio_torch runs on an NVIDIA GPU by default and "
+            "torch.cuda.is_available() is False; pass device=\"cpu\" to "
+            "run on the CPU")
+    return torch.device("cuda")
 
 
 def not_ported(feature: str) -> NotImplementedError:

@@ -1,10 +1,11 @@
 """Build and load the CUDA kernels of ``vaudio_torch/csrc``.
 
-The sources are compiled with ``nvcc`` for ``sm_90a`` into one shared
-library with a plain C interface, at first use, into
-``build/vaudio_torch/<hash>/`` beside the package (the hash covers the
-sources and the flags, so an edited kernel is rebuilt), and loaded with
-``ctypes``.  Nothing here runs at import time: the CPU has no ``nvcc``.
+The sources are compiled with ``nvcc`` for ``sm_90a`` — one ``nvcc -c``
+per source, all started together, then one link — into one shared library
+with a plain C interface, at first use, into ``build/vaudio_torch/<hash>/``
+beside the package (the hash covers the sources and the flags, so an edited
+kernel is rebuilt), and loaded with ``ctypes``.  Nothing here runs at
+import time: the CPU has no ``nvcc``.
 """
 
 from __future__ import annotations
@@ -23,7 +24,7 @@ import torch
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "vaudio_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -34,6 +35,9 @@ _SIGNATURES = {
     "vaudio_mip_pool_u8": [_P, _P, _I, _I, _I, _I, _F, _F, _P],
     "vaudio_hann_peak_weighted_sum": [_P, _P, _P, _P, _P, _I, _I, _I, _I,
                                       _P],
+    "vaudio_vision_stats": [_P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _P],
+    "vaudio_agc_overlap_add": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                               _F, _F, _P],
 }
 
 _lock = threading.Lock()
@@ -69,20 +73,38 @@ def build() -> Path:
     if path.exists():
         return path
     path.parent.mkdir(parents=True, exist_ok=True)
-    cus = [str(s) for s in _sources() if s.suffix == ".cu"]
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=path.parent)
-    os.close(fd)
+    nvcc = _nvcc()
+    work = Path(tempfile.mkdtemp(dir=path.parent))
     try:
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, *cus],
-                              capture_output=True, text=True)
-        (path.parent / "nvcc.log").write_text(proc.stdout + proc.stderr)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               f"{proc.stderr[-4000:]}")
+        procs = []
+        for src in (s for s in _sources() if s.suffix == ".cu"):
+            obj = work / (src.stem + ".o")
+            procs.append((src.name, obj, subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+        log, failed = [], []
+        for name, _obj, proc in procs:
+            out = proc.communicate()[0]
+            log.append(f"== {name}\n{out}")
+            if proc.returncode != 0:
+                failed.append(f"{name} ({proc.returncode}):\n{out[-4000:]}")
+        tmp = work / path.name
+        if not failed:
+            link = subprocess.run(
+                [nvcc, *NVCC_FLAGS[:2], "-shared", "-o", str(tmp),
+                 *(str(obj) for _n, obj, _p in procs)],
+                capture_output=True, text=True)
+            log.append(f"== link\n{link.stdout}{link.stderr}")
+            if link.returncode != 0:
+                failed.append(f"link ({link.returncode}):\n"
+                              f"{link.stderr[-4000:]}")
+        (path.parent / "nvcc.log").write_text("".join(log))
+        if failed:
+            raise RuntimeError("nvcc failed: " + "\n".join(failed))
         os.replace(tmp, path)        # atomic: concurrent builds agree
     finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+        shutil.rmtree(work, ignore_errors=True)
     return path
 
 

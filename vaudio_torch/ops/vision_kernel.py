@@ -1,0 +1,91 @@
+"""Kernel K3 (and K3' at T = 1): the fused vision epilogue.
+
+f32 mip planes (T, 3, hm, wm) -> (hist f32[T, cells, bins], grads f32[T,
+cells, 4]): HSI with the TPU kernel's own fdlibm acosf, the gated hue
+histogram over the cells' static tiles, the four clamp-to-edge intensity
+stencils and the per-cell gradient statistics over the linear-slice column
+bands.  It replaces the TPU kernels
+``vaudio/ops/vision_kernel.py::vision_stats_pallas_batched`` and
+``vision_stats_pallas``; the CUDA source is ``csrc/vision_kernel.cu``.
+
+:func:`vision_stats` routes by device: a CPU tensor runs
+:func:`vision_stats_plain` (the port's vision stages in the kernel's op
+order), a CUDA tensor the kernel.  :func:`supports` is the JAX package's
+gate, size bound included, so that both packages take the same numerics at
+every shape.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from vaudio_torch.config import AuralizerConfig
+from vaudio_torch.ops import _build
+from vaudio_torch.vision.features import (acos_fdlibm,
+                                          cell_gradient_stats_planes,
+                                          hue_bin_factorization,
+                                          hue_histogram_planes,
+                                          intensity_stencils,
+                                          rgb_to_hsi_planes)
+
+#: Kernel launches so far (a run resets it to 0 and reads it after).
+launches = 0
+
+
+def supports(hm: int, wm: int, cfg: AuralizerConfig) -> bool:
+    """The JAX package's gate (vaudio/ops/vision_kernel.py:105-123): a
+    factorable bin count, the linear-slice gradient cells (wm a multiple of
+    the cell count), a mip of at least 2 x 2, and the TPU kernel's size
+    bound (~1440p mips and below)."""
+    f1, _ = hue_bin_factorization(cfg.num_hue_bins)
+    if f1 is None:
+        return False
+    if not cfg.linear_cell_grads or wm % cfg.num_cells != 0:
+        return False
+    if hm < 2 or wm < 2:
+        return False
+    return hm * wm * 4 * 26 <= (10 << 20)
+
+
+def vision_stats_plain(mips, cfg: AuralizerConfig):
+    """The plain PyTorch version: the port's HSI (with the fdlibm acos),
+    histogram, stencil and statistics stages, in the kernel's op order."""
+    h, s, i = rgb_to_hsi_planes(mips[:, 0], mips[:, 1], mips[:, 2],
+                                acos=acos_fdlibm)
+    hist = hue_histogram_planes(h, s, i, cfg)
+    grads = cell_gradient_stats_planes(intensity_stencils(i), cfg)
+    return hist, grads
+
+
+def vision_stats(mips, cfg: AuralizerConfig):
+    """f32 mips (T, 3, hm, wm) -> (hist f32[T, cells, bins], grads f32[T,
+    cells, 4]); T = 1 is the per-frame form (K3')."""
+    if mips.device.type == "cpu":
+        return vision_stats_plain(mips, cfg)
+    _build.require_cuda(mips, "vision_stats")
+    global launches
+    if (mips.dtype != torch.float32 or mips.ndim != 4 or mips.shape[1] != 3
+            or not mips.is_contiguous()):
+        raise ValueError(f"vision_stats: mips must be contiguous f32 "
+                         f"(T, 3, hm, wm); got {mips.dtype} "
+                         f"{tuple(mips.shape)}")
+    T, _, hm, wm = mips.shape
+    if not supports(hm, wm, cfg):
+        raise ValueError(f"vision_stats: the kernel does not take a "
+                         f"{hm}x{wm} mip with this config (see supports)")
+    cells, bins = cfg.num_cells, cfg.num_hue_bins
+    if cells * bins * 4 > 227 * 1024:
+        raise ValueError(f"vision_stats: a {cells}x{bins} histogram does "
+                         f"not fit one block's shared memory")
+    hist = torch.empty((T, cells, bins), dtype=torch.float32,
+                       device=mips.device)
+    grads = torch.empty((T, cells, 4), dtype=torch.float32,
+                        device=mips.device)
+    err = _build.lib().vaudio_vision_stats(
+        mips.data_ptr(), hist.data_ptr(), grads.data_ptr(), T, hm, wm,
+        cfg.grid_size, bins, float(np.float32(cfg.saturation_gate)),
+        float(np.float32(cfg.intensity_gate)), _build.stream_ptr(mips.device))
+    _build.check(err, "vision_stats")
+    launches += 1
+    return hist, grads

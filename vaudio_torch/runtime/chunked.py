@@ -16,14 +16,14 @@ from typing import Any, Callable, Dict
 import numpy as np
 import torch
 
-from vaudio.config import AuralizerConfig
 from vaudio_torch import check_config
 from vaudio_torch import device as pick_device
+from vaudio_torch.config import AuralizerConfig
 from vaudio_torch.dsp.core import (hann_window_norm, irfft_from_half,
                                    sigmoid_normalize)
-from vaudio_torch.runtime.step import (StepCarry, check_frames,
-                                       frames_to_device, init_carry,
-                                       params_to_device)
+from vaudio_torch.runtime.step import (StepCarry, carry_from_numpy,
+                                       check_frames, frames_to_device,
+                                       init_carry, params_to_device)
 from vaudio_torch.synth.spectrum import (SynthConstants, contract_spectrum,
                                          filter_gain_from_params,
                                          flatten_partials,
@@ -170,15 +170,17 @@ def blocked_pipeline(carry: StepCarry, frames, params: Dict[str, Any],
 def make_chunk_pipeline(cfg: AuralizerConfig, debug: bool = False,
                         device=None):
     """``chunk_step(carry, frames[T, ...], params)`` with the constants
-    built once on ``device``; ``params`` as from
+    built once on ``device``; ``frames`` on the host or the device,
+    ``params`` as host values or as from
     :func:`runtime.step.params_to_device`."""
     dev = pick_device(device)
     consts = SynthConstants.create(cfg, dev)
     window = torch.as_tensor(hann_window_norm(cfg.nfft), device=dev)
 
     def step(carry, frames, params):
-        return chunk_pipeline(carry, frames, params, cfg, consts, window,
-                              debug=debug)
+        return chunk_pipeline(carry, frames_to_device(frames, dev),
+                              params_to_device(params, cfg, dev), cfg,
+                              consts, window, debug=debug)
 
     return step
 
@@ -201,12 +203,11 @@ def run_offline_batched(frames, cfg: AuralizerConfig,
     step = make_chunk_pipeline(cfg, debug=debug, device=dev)
     params = params_to_device(params, cfg, dev)
     carry = init_carry(cfg, dev) if carry is None \
-        else StepCarry(*(x.to(dev) for x in carry))
+        else carry_from_numpy(carry, dev)
     T = frames.shape[0]
     outs = []
     for start in range(0, T, chunk):
-        carry, out = step(carry, frames_to_device(frames[start:start + chunk],
-                                                  dev), params)
+        carry, out = step(carry, frames[start:start + chunk], params)
         outs.append(out)
     outs = {k: torch.cat([o[k] for o in outs]) for k in outs[0]}
     audio = outs.pop("pcm")

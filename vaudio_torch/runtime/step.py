@@ -12,11 +12,12 @@ from typing import Any, Dict, NamedTuple, Optional
 import numpy as np
 import torch
 
-from vaudio.config import AuralizerConfig, LiveParams
 from vaudio_torch import check_config, not_ported
 from vaudio_torch import device as pick_device
+from vaudio_torch.config import AuralizerConfig, LiveParams
 from vaudio_torch.dsp.core import (agc_normalize, hann_window_norm,
                                    irfft_from_half, overlap_add)
+from vaudio_torch.ops.audio_kernel import agc_overlap_add
 from vaudio_torch.synth.spectrum import (SynthConstants, build_spectrum,
                                          phase_accumulate)
 from vaudio_torch.vision.features import extract_features
@@ -50,11 +51,14 @@ def init_carry(cfg: AuralizerConfig, device="cpu") -> StepCarry:
 
 
 def carry_from_numpy(carry, device="cpu") -> StepCarry:
-    """A :class:`StepCarry` on ``device`` from numpy-convertible fields: a
-    dict, or a NamedTuple such as the JAX package's ``StepCarry``."""
+    """A :class:`StepCarry` on ``device`` from tensors or numpy-convertible
+    fields: a dict, or a NamedTuple such as the JAX package's
+    ``StepCarry``.  Host arrays are copied, never shared."""
     fields = carry._asdict() if hasattr(carry, "_asdict") else dict(carry)
     return StepCarry(**{
-        name: torch.as_tensor(np.array(fields[name]), device=device)
+        name: (fields[name].to(device) if isinstance(fields[name],
+                                                     torch.Tensor)
+               else torch.as_tensor(np.array(fields[name]), device=device))
         for name in StepCarry._fields})
 
 
@@ -71,22 +75,33 @@ def default_params(cfg: AuralizerConfig) -> Dict[str, np.float32]:
 def params_to_device(params: Optional[Dict[str, Any]], cfg: AuralizerConfig,
                      device) -> Dict[str, torch.Tensor]:
     """Live params as f32 tensors on ``device``, so that every op on them
-    runs in f32 as in the JAX package."""
+    runs in f32 as in the JAX package.  Host values (numpy, numbers) are
+    copied; f32 tensors already on ``device`` pass through."""
     if params is None:
         params = default_params(cfg)
-    return {k: torch.as_tensor(np.asarray(v, np.float32), device=device)
+    return {k: torch.as_tensor(
+                v if isinstance(v, torch.Tensor) else np.asarray(v, np.float32),
+                dtype=torch.float32, device=device)
             for k, v in params.items()}
 
 
 def synth_audio(spectrum, ola_tail, running_max, params: Dict[str, Any],
                 cfg: AuralizerConfig, window):
     """irfft -> AGC -> overlap-add (SoundEngine.swift:403-428); stereo
-    shares one AGC/OLA gain and returns pcm as (hop, channels).
+    shares one AGC/OLA gain and returns pcm as (hop, channels).  With
+    ``cfg.use_pallas`` or ``cfg.use_pallas_audio`` the AGC and overlap-add
+    are kernel K4 (:func:`ops.audio_kernel.agc_overlap_add`), as the JAX
+    package runs its fused kernel there.
     Returns (pcm, new_ola_tail, new_running_max)."""
     signal = irfft_from_half(spectrum)
-    normalized, new_max = agc_normalize(signal, running_max,
-                                        params["attack"], params["release"])
-    pcm, new_tail = overlap_add(normalized, ola_tail, window)
+    if cfg.use_pallas or cfg.use_pallas_audio:
+        pcm, new_tail, new_max = agc_overlap_add(
+            signal, ola_tail, window, running_max, params["attack"],
+            params["release"])
+    else:
+        normalized, new_max = agc_normalize(
+            signal, running_max, params["attack"], params["release"])
+        pcm, new_tail = overlap_add(normalized, ola_tail, window)
     if cfg.channels != 1:
         pcm = pcm.T
     return pcm, new_tail, new_max
@@ -114,6 +129,28 @@ def frame_step(carry: StepCarry, frame, params: Dict[str, Any],
     if debug:
         out.update(hues=hues, grads=grads, spectrum=spectrum)
     return new_carry, out
+
+
+def make_step(cfg: AuralizerConfig, debug: bool = False, jit: bool = True,
+              device=None):
+    """``step(carry, frame, params) -> (carry, out)`` with the synthesis
+    constants and the window built once on ``device`` (the JAX package's
+    ``make_step``).  ``frame`` is one (H, W, 3) frame, u8 or f32, on the
+    host or the device; ``params`` live params as host values or as from
+    :func:`params_to_device`.  ``jit`` is accepted and does nothing:
+    PyTorch runs eagerly.  Every call returns new tensors and leaves the
+    carry it was given untouched."""
+    check_config(cfg)
+    dev = pick_device(device)
+    consts = SynthConstants.create(cfg, dev)
+    window = torch.as_tensor(hann_window_norm(cfg.nfft), device=dev)
+
+    def step(carry, frame, params):
+        return frame_step(carry, frames_to_device(frame[None], dev)[0],
+                          params_to_device(params, cfg, dev), cfg, consts,
+                          window, debug=debug)
+
+    return step
 
 
 def check_frames(frames):
@@ -154,7 +191,7 @@ def run_offline(frames, cfg: AuralizerConfig,
     frames = frames_to_device(frames, dev)
     params = params_to_device(params, cfg, dev)
     carry = init_carry(cfg, dev) if carry is None \
-        else StepCarry(*(x.to(dev) for x in carry))
+        else carry_from_numpy(carry, dev)
     consts = SynthConstants.create(cfg, dev)
     window = torch.as_tensor(hann_window_norm(cfg.nfft), device=dev)
     T = frames.shape[0]

@@ -13,8 +13,8 @@ import dataclasses
 import numpy as np
 import torch
 
-from vaudio.config import BESSEL_RATIOS, AuralizerConfig
 from vaudio_torch import not_ported
+from vaudio_torch.config import BESSEL_RATIOS, AuralizerConfig
 from vaudio_torch.dsp.core import find_closest_index, hue_to_f0
 from vaudio_torch.ops.spectrum_kernel import hann_peak_weighted_sum
 

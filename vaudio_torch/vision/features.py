@@ -14,8 +14,8 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from vaudio.config import AuralizerConfig
 from vaudio_torch import not_ported
+from vaudio_torch.config import AuralizerConfig
 from vaudio_torch.ops import pool_kernel
 
 _TWO_PI = float(np.float32(2.0 * np.pi))
@@ -40,9 +40,52 @@ def acos_poly(x):
     return torch.where(x >= 0.0, r, float(np.float32(np.pi)) - r)
 
 
-def rgb_to_hsi_planes(r, g, b, fast_acos: bool = False):
+# fdlibm acosf constants, as the JAX package's vision kernel carries them
+# (vaudio/ops/vision_kernel.py:60-65).
+_PIO2_HI = float(np.float32(1.5707962513e+00))
+_PIO2_LO = float(np.float32(7.5497894159e-08))
+_PS0 = float(np.float32(1.6666586697e-01))
+_PS1 = float(np.float32(-4.2743422091e-02))
+_PS2 = float(np.float32(-8.6563630030e-03))
+_QS1 = float(np.float32(-7.0662963390e-01))
+
+
+def _r_poly(z):
+    p = z * (_PS0 + z * (_PS1 + z * _PS2))
+    q = 1.0 + z * _QS1
+    return p / q
+
+
+def acos_fdlibm(x):
+    """float32 acos on [-1, 1] from sqrt, divide and polynomial only: the
+    fdlibm algorithm the vision kernel K3 carries (vaudio/ops/
+    vision_kernel.py:74-96), the sqrt of the x >= 0.5 branch split into a
+    bit-truncated head and an exact tail.  Every branch is evaluated and
+    one is selected, as in the JAX package."""
+    ax = torch.abs(x)
+    z1 = x * x
+    r1 = _PIO2_HI - (x - (_PIO2_LO - x * _r_poly(z1)))
+    z2 = (1.0 + x) * 0.5
+    s2 = torch.sqrt(z2)
+    r2 = 2.0 * (_PIO2_HI - (s2 + (_r_poly(z2) * s2 - _PIO2_LO)))
+    z3 = (1.0 - x) * 0.5
+    s3 = torch.sqrt(z3)
+    df = (s3.view(torch.int32) & -4096).view(torch.float32)  # 0xFFFFF000
+    denom = s3 + df
+    pos = denom > 0.0
+    c3 = torch.where(pos, (z3 - df * df)
+                     / torch.where(pos, denom, torch.ones_like(denom)),
+                     torch.zeros_like(denom))
+    r3 = 2.0 * (df + (_r_poly(z3) * s3 + c3))
+    return torch.where(ax < 0.5, r1, torch.where(x < 0.0, r2, r3))
+
+
+def rgb_to_hsi_planes(r, g, b, fast_acos: bool = False, acos=None):
     """RGB planes -> (H, S, I) planes (convolveFeatures.metal:14-38); the
-    acos argument is clamped to [-1, 1], grey pixels get hue 0."""
+    acos argument is clamped to [-1, 1], grey pixels get hue 0.  ``acos``
+    overrides the arccos (the vision kernel's :func:`acos_fdlibm`).  The
+    division by 2 pi is a true division on every device (on CUDA a Python
+    scalar divisor would become a multiply by its reciprocal)."""
     i = (r + g + b) * float(np.float32(1.0 / 3.0))
     min_val = torch.minimum(r, torch.minimum(g, b))
     one = torch.ones_like(i)
@@ -53,8 +96,11 @@ def rgb_to_hsi_planes(r, g, b, fast_acos: bool = False):
     den = torch.sqrt((r - g) * (r - g) + (r - b) * (g - b))
     safe_den = torch.where(den != 0.0, den, one)
     arg = torch.clamp(num / safe_den, -1.0, 1.0)
-    theta = acos_poly(arg) if fast_acos else torch.arccos(arg)
-    h = torch.where(b <= g, theta, _TWO_PI - theta) / _TWO_PI
+    if acos is None:
+        acos = acos_poly if fast_acos else torch.arccos
+    theta = acos(arg)
+    h = torch.where(b <= g, theta, _TWO_PI - theta) \
+        / torch.full((), _TWO_PI, device=theta.device)
     h = torch.where(den != 0.0, h, torch.zeros_like(h))
     return h, s, i
 
@@ -136,6 +182,30 @@ def feature_stencil_plane(plane):
                 acc = acc + k * padded[..., dy:dy + h, dx:dx + w]
         outs.append(acc)
     return torch.stack(outs, dim=-3)
+
+
+def intensity_stencils(plane):
+    """:func:`feature_stencil_plane` in the vision kernel's sums
+    (vaudio/ops/vision_kernel.py:216-224): west - east, south - north,
+    4 c - (corners) and (nw + se) - (ne + sw).  Returns f32[..., 4, H, W]."""
+    h, w = plane.shape[-2:]
+    dev = plane.device
+    rows = torch.arange(-1, h + 1, device=dev).clamp(0, h - 1)
+    cols = torch.arange(-1, w + 1, device=dev).clamp(0, w - 1)
+    padded = plane.to(torch.float32)[..., rows, :][..., cols]
+
+    def tap(dy, dx):
+        return padded[..., dy:dy + h, dx:dx + w]
+
+    west = tap(0, 0) + tap(1, 0) + tap(2, 0)
+    east = tap(0, 2) + tap(1, 2) + tap(2, 2)
+    north = tap(0, 0) + tap(0, 1) + tap(0, 2)
+    south = tap(2, 0) + tap(2, 1) + tap(2, 2)
+    breathing = 4.0 * tap(1, 1) - (tap(0, 0) + tap(0, 2) + tap(2, 0)
+                                   + tap(2, 2))
+    saddle = (tap(0, 0) + tap(2, 2)) - (tap(0, 2) + tap(2, 0))
+    return torch.stack([breathing, west - east, south - north, saddle],
+                       dim=-3)
 
 
 # ---------------------------------------------------------------------------
@@ -295,12 +365,18 @@ def frame_mip_planes(frames, cfg: AuralizerConfig):
 def frame_stats(frames, cfg: AuralizerConfig,
                 compute_debug_maps: bool = False):
     """The stateless vision pass over a chunk: frames (T, H, W, 3) ->
-    (hist f32[T, 16, 360], grads f32[T, 16, 4])."""
+    (hist f32[T, 16, 360], grads f32[T, 16, 4]).  With
+    ``cfg.use_pallas_vision`` and a mip the kernel takes, everything after
+    the mip pool is kernel K3 (:func:`ops.vision_kernel.vision_stats`),
+    else the stages below."""
     if compute_debug_maps:
         raise not_ported("the vision debug maps")
-    if cfg.use_pallas_vision:
-        raise not_ported("use_pallas_vision")
     mip = frame_mip_planes(frames, cfg)
+    if cfg.use_pallas_vision:
+        # Imported here: ops.vision_kernel imports this module.
+        from vaudio_torch.ops import vision_kernel
+        if vision_kernel.supports(mip.shape[-2], mip.shape[-1], cfg):
+            return vision_kernel.vision_stats(mip.contiguous(), cfg)
     h, s, i = rgb_to_hsi_planes(mip[:, 0], mip[:, 1], mip[:, 2],
                                 fast_acos=cfg.fast_hue_acos)
     hist = hue_histogram_planes(h, s, i, cfg)
