@@ -15,7 +15,10 @@ Phases, one line each; any failure exits non-zero:
    u8 [8, 1080, 1920, 3] frames at mip 3: integer block sums exact, f32
    within 1 ulp; both times from CUDA events;
 4. K2, the Hann-peak contraction, against its plain version at T=64,
-   F=2047, NP=496, K=2 and 4, and K2' at T=1: within 1e-5; both times;
+   F=2047, NP=496, K=2 and 4, at T=8, K=4 (the chunked live path's) and K2'
+   at T=1: within 1e-5; frames 0, T/2 and T-1 of the T=64 call equal to
+   T=1 calls on the same inputs and two calls equal, bit for bit; both
+   times;
 5. the offline path: ``Auralizer(config=AuralizerConfig(sample_rate=48000.0,
    channels=2), device="cuda").sonify`` on 64 structured u8 1080p frames,
    with the kernels' launch counts reset before and read after; then the
@@ -23,7 +26,8 @@ Phases, one line each; any failure exits non-zero:
    (equal hue sequences, PCM within 1e-4);
 6. K3, the vision epilogue, against its plain version on the mips of
    structured 1080p frames (135 x 240) at T=64, 8 and 1: counts exact,
-   statistics within atol 1e-6, rtol 1e-5; both times;
+   statistics within atol 1e-6, rtol 1e-5; the same bit checks as K2 (T=1
+   against the batch, two calls); both times;
 7. K4, AGC + overlap-add, mono and stereo 4096 samples: within 1e-6;
    both times;
 8. the live path: ``Auralizer(source=frames, config=..., device="cuda")
@@ -51,6 +55,7 @@ CPU: without a card the script fails.
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -156,6 +161,27 @@ def timing(e: dict) -> str:
     return (f"kernel {e['ms']:.4f} ms ({e['device_ms']:.4f} on the device), "
             f"plain {e['plain_ms']:.4f} ms ({e['plain_device_ms']:.4f}), "
             f"bound {e['bound_ms']:.6f} ms ({e['bound_by']})")
+
+
+def bits_equal(a, b) -> bool:
+    """Equal bit for bit (+0 and -0 apart, NaN equal to itself)."""
+    return a.shape == b.shape and torch.equal(a.view(torch.int32),
+                                              b.view(torch.int32))
+
+
+def check_batch_independent(name: str, fn, inputs, T: int) -> None:
+    """Fail unless two calls of ``fn`` on the T-frame ``inputs`` give the
+    same bits, and frames 0, T/2 and T-1 of that call the same bits as a
+    call on the frame alone."""
+    full = fn(*inputs)
+    again = fn(*inputs)
+    if not all(bits_equal(a, b) for a, b in zip(full, again)):
+        fail(f"{name} T={T}: two calls on the same inputs differ")
+    for j in (0, T // 2, T - 1):
+        one = fn(*(x[j:j + 1].contiguous() for x in inputs))
+        if not all(bits_equal(a[j:j + 1], b) for a, b in zip(full, one)):
+            fail(f"{name}: frame {j} of the T={T} call differs from the "
+                 f"T=1 call on the same inputs")
 
 
 def kernel_modules() -> dict:
@@ -284,7 +310,7 @@ def phase_k2(smi: str) -> list:
     NP, F = 496, cfg.num_bins
     freqs = torch.as_tensor(cfg.bin_frequencies(), device="cuda")
     entries = []
-    for T, K in ((CHUNK_T, 2), (CHUNK_T, 4), (1, 4)):
+    for T, K in ((CHUNK_T, 2), (CHUNK_T, 4), (LIVE_CHUNK, 4), (1, 4)):
         pf = torch.as_tensor(rng.uniform(20, 20000, (T, NP)).astype(
             np.float32), device="cuda")
         scale = torch.as_tensor((rng.choice([1.0, 0.2], (T, NP))
@@ -301,7 +327,15 @@ def phase_k2(smi: str) -> list:
         if not err <= 1e-5:
             fail(f"K2 T={T} K={K} differs from the plain version by "
                  f"{err:.3e}")
-        e = entry("hann_peak_weighted_sum" + ("_t1" if T == 1 else ""),
+        bits = ""
+        if T == CHUNK_T:
+            check_batch_independent(
+                f"K2 K={K}", lambda *a: (sk.hann_peak_weighted_sum(
+                    freqs, *a),), (pf, scale, w), T)
+            bits = "; frames 0, T/2, T-1 equal to T=1 calls and two calls "
+            bits += "equal, bit for bit"
+        e = entry("hann_peak_weighted_sum" + ("" if T == CHUNK_T
+                                              else f"_t{T}"),
                   "vaudio_torch/csrc/spectrum_kernel.cu",
                   "vaudio/ops/spectrum_kernel.py:"
                   + ("71" if T == 1 else "142"), err,
@@ -310,9 +344,10 @@ def phase_k2(smi: str) -> list:
                                                           w),
                   nbytes=4 * (F + T * NP * (2 + K) + T * F * K),
                   ops=T * F * NP * (K2_PEAK_OPS + 2 * K),
-                  path="live_frame" if T == 1 else "offline")
+                  path={1: "live_frame", LIVE_CHUNK: "live_chunk"}.get(
+                      T, "offline"))
         say(f"K2 hann_peak_weighted_sum T={T} F={F} NP={NP} K={K}: "
-            f"max_abs_err {err:.3e}; {timing(e)} ({smi})")
+            f"max_abs_err {err:.3e}{bits}; {timing(e)} ({smi})")
         if K == 4:              # the stereo paths' shape
             entries.append(e)
     return entries
@@ -399,6 +434,12 @@ def phase_k3(frames: np.ndarray, smi: str) -> list:
             fail(f"K3 T={T} statistics differ from the plain version by "
                  f"{float((grads - ref_g).abs().max()):.3e}")
         err = float((grads - ref_g).abs().max())
+        bits = ""
+        if T == CHUNK_T:
+            check_batch_independent(
+                "K3", lambda x: vk.vision_stats(x, cfg), (m,), T)
+            bits = "; frames 0, T/2, T-1 equal to T=1 calls and two calls "
+            bits += "equal, bit for bit"
         e = entry("vision_stats" + ("_t1" if T == 1 else ""),
                   "vaudio_torch/csrc/vision_kernel.cu",
                   "vaudio/ops/vision_kernel.py:"
@@ -409,7 +450,7 @@ def phase_k3(frames: np.ndarray, smi: str) -> list:
                   ops=T * hm * wm * K3_PIXEL_OPS,
                   path="live_frame" if T == 1 else "live_chunk")
         say(f"K3 vision_stats T={T} mip {hm}x{wm}: counts exact, "
-            f"statistics max_abs_err {err:.3e}; {timing(e)} ({smi})")
+            f"statistics max_abs_err {err:.3e}{bits}; {timing(e)} ({smi})")
         if T != CHUNK_T:         # the live paths' shapes
             entries.append(e)
     return entries
@@ -630,7 +671,7 @@ def main() -> None:
     phase_profile(frames, smi)
     phase_realtime(frames, smi)
     for k in kernels:
-        base = k["name"].removesuffix("_t1")
+        base = re.sub(r"_t\d+$", "", k["name"])
         k["launches"] = counts[k["path"]][base]
         k["launches_by_path"] = {p: c[base] for p, c in counts.items()}
     say(smi)

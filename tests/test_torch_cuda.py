@@ -14,7 +14,7 @@ import torch
 from torch_frames import structured_frames
 from vaudio_torch.config import AuralizerConfig
 from vaudio_torch.api import Auralizer
-from vaudio_torch.dsp.core import hann_window_norm
+from vaudio_torch.dsp.core import hann_sinc_peak_fast, hann_window_norm
 from vaudio_torch.ops import (audio_kernel, pool_kernel, spectrum_kernel,
                               vision_kernel)
 from vaudio_torch.runtime import chunked, step
@@ -72,6 +72,86 @@ def test_k2_matches_plain(dev, gen, K):
     ref = spectrum_kernel.hann_peak_weighted_sum_plain(*args)
     assert got.shape == (T, cfg.num_bins, K)
     assert float((got - ref).abs().max()) <= 1e-5
+
+
+K2_SHAPES = [(T, F, NP, K) for T in (1, 8, 64) for F in (2047, 33)
+             for NP in (496, 31, 1024) for K in (2, 4)]
+# Bin distances placed at a few bins: the exact limits, half-integers (rint
+# rounds them to even) and |d| >= 2^23, where the parity comes from a large
+# integer (2^23 + 1 is odd; from 2^24 every float is even, and from 2^31
+# the integer conversion saturates).
+K2_SPECIAL_D = [0.0, 1.0, -1.0, 0.5, -0.5, 2.5, -2.5]
+K2_HUGE_SCALE = [2.0 ** 23 + 1, -(2.0 ** 23 + 1), 2.0 ** 24 + 2, 3.0e9]
+
+
+def k2_case(gen, T, F, NP, K):
+    """f32 (freqs, pf, scale, w) on the host: F bins of the default grid,
+    NP partials spread over them, the first ones at the special distances
+    (as many as NP takes)."""
+    cfg = AuralizerConfig()
+    freqs = cfg.bin_frequencies()[:F]
+    pf = gen.uniform(freqs[0] - 50, freqs[-1] + 50, (T, NP)).astype(
+        np.float32)
+    scale = (gen.choice([1.0, 0.2], (T, NP)) / cfg.bin_width).astype(
+        np.float32)
+    at = [(d, 1.0) for d in K2_SPECIAL_D] + [(1.0, s) for s in K2_HUGE_SCALE]
+    for j, (d, s) in enumerate(at[:NP]):
+        f = (7 * j + 3) % F
+        pf[:, j] = freqs[f] - np.float32(d)
+        scale[:, j] = np.float32(s)
+    w = gen.normal(0, 0.1, (T, NP, K)).astype(np.float32)
+    return freqs, pf, scale, w
+
+
+@pytest.mark.parametrize("T,F,NP,K", K2_SHAPES)
+def test_k2_matches_plain_across_shapes(dev, gen, T, F, NP, K):
+    """Within 1e-5 of the plain version (the contraction band) at the
+    live, chunked and offline T, a ragged bin tile (F = 33), few and many
+    partials, and partials at the special distances."""
+    args = [torch.as_tensor(x, device=dev) for x in k2_case(gen, T, F, NP, K)]
+    got = spectrum_kernel.hann_peak_weighted_sum(*args)
+    ref = spectrum_kernel.hann_peak_weighted_sum_plain(*args)
+    assert got.shape == (T, F, K)
+    assert bool(torch.isfinite(got).all())
+    assert float((got - ref).abs().max()) <= 1e-5
+
+
+def test_k2_peak_equals_the_plain_peak(dev, gen):
+    """One partial at pf = 0, scale 1 and weight (1, 0, 0, 0): out[0, f, 0]
+    is W(freqs[f]) itself, equal to the plain W at every distance: the
+    limits, half-integers, 2^23 + 1 (odd), 2^24 and beyond 2^31."""
+    d = np.concatenate([
+        np.array(K2_SPECIAL_D + K2_HUGE_SCALE + [3.5, -3.5, 4.5, 1e-30,
+                                                 2.0 ** 24, -3.0e9]),
+        gen.uniform(-40, 40, 200), gen.uniform(-1e6, 1e6, 50)]).astype(
+            np.float32)
+    freqs = torch.as_tensor(d, device=dev)
+    zero = torch.zeros((1, 1), device=dev)
+    w = torch.tensor([[[1.0, 0.0, 0.0, 0.0]]], device=dev)
+    got = spectrum_kernel.hann_peak_weighted_sum(freqs, zero, zero + 1, w)
+    assert torch.equal(got[0, :, 0], hann_sinc_peak_fast(freqs))
+    assert torch.equal(got[0, :, 0].cpu(), hann_sinc_peak_fast(freqs.cpu()))
+
+
+def bits_equal(a, b):
+    return a.shape == b.shape and torch.equal(a.view(torch.int32),
+                                              b.view(torch.int32))
+
+
+@pytest.mark.parametrize("K", [2, 4])
+def test_k2_is_batch_independent_and_deterministic(dev, gen, K):
+    """Each frame's output is the same bits at T=1 and inside a batch of
+    64, and from run to run."""
+    T = 64
+    freqs, *rest = (torch.as_tensor(x, device=dev)
+                    for x in k2_case(gen, T, 2047, 496, K))
+    full = spectrum_kernel.hann_peak_weighted_sum(freqs, *rest)
+    assert bits_equal(full, spectrum_kernel.hann_peak_weighted_sum(freqs,
+                                                                   *rest))
+    for j in (0, 5, T // 2, T - 1):
+        one = spectrum_kernel.hann_peak_weighted_sum(
+            freqs, *(x[j:j + 1].contiguous() for x in rest))
+        assert bits_equal(one[0], full[j])
 
 
 def test_wrappers_count_launches_and_check_inputs(dev):
@@ -138,13 +218,53 @@ def test_k3_matches_plain_at_1080p(dev, gen, T):
     torch.testing.assert_close(grads, ref_g, rtol=1e-5, atol=1e-6)
 
 
+K3_SHAPES = [(135, 240), (61, 48), (34, 32), (2, 16),
+             (2048, 32),         # several row strips per band
+             (2, 8192)]          # several column tiles per band
+
+
+@pytest.mark.parametrize("T", [1, 8, 64])
+@pytest.mark.parametrize("hm,wm", K3_SHAPES)
+def test_k3_matches_plain_across_shapes(dev, gen, T, hm, wm):
+    """Counts exact and statistics within atol 1e-6, rtol 1e-5 at the
+    live, chunked and offline T, on mips whose tiles are ragged (61 x 48),
+    empty (2 x 16: two of the four row bands hold no pixel), or whose bands
+    take several shared-memory tiles."""
+    cfg = AuralizerConfig()
+    mips = gen.uniform(0, 1, (T, 3, hm, wm)).astype(np.float32)
+    if hm >= 16:
+        mips[:, :, :hm // 8] = 0.05
+        mips[:, :, hm // 8:hm // 4] = 0.7
+    mips = torch.as_tensor(mips, device=dev)
+    hist, grads = vision_kernel.vision_stats(mips, cfg)
+    ref_h, ref_g = vision_kernel.vision_stats_plain(mips, cfg)
+    assert hist.shape == (T, 16, 360) and grads.shape == (T, 16, 4)
+    assert torch.equal(hist, ref_h)
+    assert float(hist.sum()) > 0
+    torch.testing.assert_close(grads, ref_g, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("hm,wm", [(135, 240), (61, 48)])
+def test_k3_is_batch_independent(dev, gen, hm, wm):
+    """Each frame's histogram and statistics are the same bits at T=1 and
+    inside a batch of 64."""
+    cfg = AuralizerConfig()
+    mips = torch.as_tensor(gen.uniform(0, 1, (64, 3, hm, wm)).astype(
+        np.float32), device=dev)
+    full = vision_kernel.vision_stats(mips, cfg)
+    for j in (0, 5, 32, 63):
+        one = vision_kernel.vision_stats(mips[j:j + 1].contiguous(), cfg)
+        assert bits_equal(one[0][0], full[0][j])
+        assert bits_equal(one[1][0], full[1][j])
+
+
 def test_k3_is_deterministic(dev, gen):
     cfg = AuralizerConfig()
     mips = torch.as_tensor(gen.uniform(0, 1, (8, 3, 135, 240)).astype(
         np.float32), device=dev)
     a = vision_kernel.vision_stats(mips, cfg)
     b = vision_kernel.vision_stats(mips, cfg)
-    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+    assert bits_equal(a[0], b[0]) and bits_equal(a[1], b[1])
 
 
 @pytest.mark.parametrize("channels", [1, 2])

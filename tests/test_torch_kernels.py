@@ -147,6 +147,52 @@ def test_k3_supports_matches_jax(hm, wm, cfg):
         jax_vision_kernel.supports(hm, wm, cfg)
 
 
+TILE_SHAPES = [(135, 240), (61, 48), (34, 32), (2, 16), (180, 320)]
+TILE_CASES = [(hm, wm, grid) for grid in (4, 2, 8) for hm, wm in TILE_SHAPES
+              if wm % (grid * grid) == 0]
+
+
+@pytest.mark.parametrize("hm,wm,grid", TILE_CASES)
+def test_k3_tile_table_matches_the_tpu_kernel(hm, wm, grid):
+    """The CUDA kernel's histogram blocks take the TPU kernel's own static
+    tiles (vaudio/ops/vision_kernel.py::_kernel_setup), in cell order."""
+    tiles = jax_vision_kernel._kernel_setup(hm, wm, grid, CFG.num_hue_bins,
+                                            CFG.saturation_gate,
+                                            CFG.intensity_gate)[0]
+    rects = vision_kernel.block_rects(hm, wm, grid)
+    assert rects.shape == (2 * grid * grid, 4) and rects.dtype == np.int32
+    np.testing.assert_array_equal(rects[:grid * grid], np.array(tiles))
+
+
+@pytest.mark.parametrize("hm,wm,grid", TILE_CASES)
+def test_k3_tiles_cover_each_pixel_once(hm, wm, grid):
+    """Every pixel lies in exactly one histogram tile, the tile of its cell
+    by the per-pixel formula: row x grid / wm, column (hm-1-y) grid / hm."""
+    count = np.zeros((hm, wm), np.int64)
+    cell = np.full((hm, wm), -1, np.int64)
+    for c, (y0, yh, x0, xw) in enumerate(
+            vision_kernel.block_rects(hm, wm, grid)[:grid * grid]):
+        count[y0:y0 + yh, x0:x0 + xw] += 1
+        cell[y0:y0 + yh, x0:x0 + xw] = c
+    y, x = np.meshgrid(np.arange(hm), np.arange(wm), indexing="ij")
+    np.testing.assert_array_equal(count, 1)
+    np.testing.assert_array_equal(
+        cell, ((x * grid) // wm) * grid + ((hm - 1 - y) * grid) // hm)
+
+
+@pytest.mark.parametrize("hm,wm,grid", TILE_CASES)
+def test_k3_bands_cover_the_columns(hm, wm, grid):
+    """The gradient blocks' bands: cell c spans all rows and columns
+    c cw .. (c+1) cw - 1, cw = wm / cells, so together [0, wm) once."""
+    cells = grid * grid
+    bands = vision_kernel.block_rects(hm, wm, grid)[cells:]
+    assert bands.shape == (cells, 4)
+    np.testing.assert_array_equal(bands[:, :2], [[0, hm]] * cells)
+    np.testing.assert_array_equal(bands[:, 3], wm // cells)
+    cols = np.concatenate([np.arange(x0, x0 + xw) for _, _, x0, xw in bands])
+    np.testing.assert_array_equal(cols, np.arange(wm))
+
+
 K4_TRIPLES = [(1.0, 1.0, 1.0), (0.3, 0.5, 0.2), (2.0, 0.0, 1.0)]
 
 
@@ -248,3 +294,34 @@ def test_build_is_keyed_by_the_sources():
         "pool_kernel.cu", "spectrum_kernel.cu", "vision_kernel.cu",
         "audio_kernel.cu"}
     assert path == _build.library_path()
+
+
+SASS = """
+\tcode for sm_90a
+\t\tFunction : _ZN12_GLOBAL__N_129hann_peak_weighted_sum_kernelILi4EEEvPKf
+        /*0000*/                   LDC R1, c[0x0][0x28] ;   /* 0x00000a00ff017b82 */
+                                                            /* 0x000fe20000000800 */
+        /*0010*/                   S2R R0, SR_TID.X ;
+        /*0020*/                   FRND R5, R4 ;
+        /*0030*/                   FADD R6, R4, -R5 ;
+        /*0040*/                   FRND R7, R3 ;
+        /*0050*/                   FFMA R8, R6, R7, R8 ;
+        /*0060*/              @!P0 BRA 0x20 ;
+        /*0070*/                   BRA 0x70 ;
+        /*0080*/                   EXIT ;
+"""
+
+
+def test_sass_loop_count():
+    """The SASS counter finds the loop (a branch back to a lower address)
+    and counts its instructions per marker opcode."""
+    from vaudio_torch.ops import sass
+    funcs = sass.parse(SASS)
+    (name, insns), = funcs.items()
+    assert "hann_peak" in name and len(insns) == 9
+    spin, body = sass.loops(insns, marker="FRND")
+    assert spin["instructions"] == 1 and spin["per_marker"] is None
+    assert (body["start"], body["end"]) == ("0x20", "0x60")
+    assert body["instructions"] == 5 and body["markers"] == 2
+    assert body["per_marker"] == 2.5
+    assert body["by_opcode"] == {"FRND": 2, "FADD": 1, "FFMA": 1, "BRA": 1}

@@ -1,4 +1,5 @@
-// Kernel K2: the batched Hann-peak spectrum contraction.
+// Kernel K2: the batched Hann-peak spectrum contraction (K2' is the same
+// kernel at T = 1).
 //
 // Replaces: vaudio/ops/spectrum_kernel.py, hann_peak_weighted_sum_batched
 // (body _spectrum_kernel_batched) and, at T = 1, hann_peak_weighted_sum
@@ -7,30 +8,51 @@
 //
 // What it computes:
 //   out[t, f, k] = sum_p W((freqs[f] - pf[t, p]) * scale[t, p]) * w[t, p, k]
-// where W is vaudio.dsp.core.hann_sinc_peak_fast: n = rint(d) (half to
-// even), a 5-term odd polynomial for sin(pi (d - n)), the sign (-1)^n, and
-// one divide by the factored denominator pi d (d - 1) (d + 1), with the
+// where W is vaudio_torch.dsp.core.hann_sinc_peak_fast: n = rint(d) (half
+// to even), a 5-term odd polynomial for sin(pi (d - n)), the sign (-1)^n,
+// and one divide by the factored denominator pi d (d - 1) (d + 1), with the
 // exact limits 0.5 at d = 0 and -0.25 at |d| = 1.  W is evaluated with
-// explicit _rn intrinsics in the JAX op order, so that FMA contraction
-// cannot change it: each W equals the plain PyTorch version's bit for bit,
-// and only the order of the sum over partials differs.
+// explicit _rn intrinsics in the JAX op order and the IEEE divide, so that
+// FMA contraction cannot change it: each W equals the plain PyTorch
+// version's bit for bit, and only the order of the sum over partials
+// differs.
 //
-// What bounds it on the H100: arithmetic.  At F = 2047 and NP = 496 a frame
-// is 1.0M peak evaluations of ~25 f32 operations and a divide each, against
-// 12 KB of operands; K = 2 or 4 output columns is far too narrow for the
-// tensor cores, so the contraction is CUDA-core f32 work.
+// What bounds it on the H100: instruction throughput.  A frame is F x NP =
+// 1.0M peak evaluations (F = 2047, NP = 496) against 12 KB of operands.  W alone
+// is 19 separately rounded f32 operations, the rint and the IEEE divide
+// (reciprocal, refinement, range check); with the distance, the parity,
+// the K multiply-adds, the operand loads and the loop, the inner loop is
+// ~50 SASS instructions per peak (116 in the first draft, whose fmodf
+// parity test was a library routine; counted by vaudio_torch/ops/sass.py).
+// No tensor cores: the output is only K = 2 or 4 columns wide, TF32 is off
+// (f32 throughout), and the cost is the evaluation of W, not the K
+// multiply-adds.  At small T the first draft (one block of 256 bins per
+// frame, one thread walking all partials) filled 8 of 132 SMs.
 //
-// What the design does about it: one block per (frame, tile of 256 bins);
-// the frame's pf, scale and w (NP <= 1024, K <= 4) are staged once in
-// shared memory, and every thread owns one bin, loops over the partials
-// from shared memory (a broadcast read) and keeps its K sums in registers.
-// Nothing but the (T, F, K) result is written to device memory.  No padding
-// of the partials is needed: NP is a loop bound.
+// What the design does about it:
+//   * the parity of n from the rounded integer, the low bit of
+//     __float2int_rn(d) (round half to even, as rintf), not fmodf; floats
+//     of magnitude 2^24 and above are all even (and the conversion
+//     saturates from 2^31), so |d| is clamped to 2^24 first.  The sign is
+//     applied to W's sign bit, and the two limits are one select where the
+//     denominator is 0;
+//   * a block owns 32 bins (one per lane) and splits the partials over its
+//     16 warps: warp w sums the partials p = w mod 16 in order, and the 16
+//     sums of each bin are added in warp order in shared memory.  The grid
+//     is (ceil(F / 32), T): 64 blocks at T = 1, 4096 at T = 64.  Nothing
+//     depends on T and no float atomic is used, so each frame's output is
+//     the same bits at any T and from run to run;
+//   * the frame's operands are packed in shared memory, (pf, scale) as one
+//     float2 and the K weights as one float4 (K = 4) or float2 (K = 2): each
+//     partial is two broadcast loads per warp.
+// Nothing but the (T, F, K) result is written to device memory.
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kBins = 32;                 // bins per block, one per lane
+constexpr int kWarps = 16;                // partials split over the warps
+constexpr int kThreads = kBins * kWarps;  // 512
 
 constexpr float kPi = 3.14159265358979323846f;
 constexpr float kA1 = 3.1415925f;
@@ -38,6 +60,7 @@ constexpr float kA3 = -5.167707f;
 constexpr float kA5 = 2.5500314f;
 constexpr float kA7 = -0.5980451f;
 constexpr float kA9 = 0.07722007f;
+constexpr float kTwo24 = 16777216.0f;
 
 __device__ __forceinline__ float hann_sinc_peak_fast(float d) {
     const float n = rintf(d);
@@ -47,66 +70,114 @@ __device__ __forceinline__ float hann_sinc_peak_fast(float d) {
     p = __fadd_rn(__fmul_rn(p, x2), kA5);
     p = __fadd_rn(__fmul_rn(p, x2), kA3);
     p = __fadd_rn(__fmul_rn(p, x2), kA1);
-    float s = __fmul_rn(frac, p);
-    if (fmodf(n, 2.0f) != 0.0f) s = -s;                 // (-1)^n
+    const float s = __fmul_rn(frac, p);
     const float num = __fsub_rn(__fmul_rn(d, d), 0.5f);
     const float den = __fmul_rn(
         __fmul_rn(__fmul_rn(kPi, d), __fsub_rn(d, 1.0f)),
         __fadd_rn(d, 1.0f));
     float w = __fmul_rn(s, __fdiv_rn(num, den));
-    if (d == 0.0f) w = 0.5f;
-    if (fabsf(d) == 1.0f) w = -0.25f;
+    // The sign (-1)^n of s, applied to w: (-s) q = -(s q) when rounding to
+    // nearest.  The parity is the low bit of the rounded integer; floats of
+    // magnitude 2^24 and above are even, so |d| is clamped there first.
+    const unsigned odd = __float2int_rn(fminf(fabsf(d), kTwo24));
+    w = __uint_as_float(__float_as_uint(w) ^ (odd << 31));
+    // den is 0 at d = 0 and |d| = 1 exactly (no other product of its
+    // factors rounds to 0): the limits 0.5 and -0.25, 0.5 - 0.75 |d|.
+    if (den == 0.0f) w = __fmaf_rn(-0.75f, fabsf(d), 0.5f);
     return w;
 }
 
+template <int K> struct Weights;
+template <> struct Weights<2> { using type = float2; };
+template <> struct Weights<4> { using type = float4; };
+
+__device__ __forceinline__ void unpack(const float2& v, float* x) {
+    x[0] = v.x; x[1] = v.y;
+}
+__device__ __forceinline__ void unpack(const float4& v, float* x) {
+    x[0] = v.x; x[1] = v.y; x[2] = v.z; x[3] = v.w;
+}
+
 template <int K>
-__global__ void hann_peak_weighted_sum_kernel(
+__global__ void __launch_bounds__(kThreads) hann_peak_weighted_sum_kernel(
         const float* __restrict__ freqs, const float* __restrict__ pf,
         const float* __restrict__ scale, const float* __restrict__ w,
         float* __restrict__ out, int F, int NP) {
-    extern __shared__ float smem[];
-    float* s_pf = smem;
-    float* s_scale = smem + NP;
-    float* s_w = smem + 2 * NP;
+    using Vec = typename Weights<K>::type;
+    extern __shared__ float4 smem[];                 // 16-byte aligned
+    Vec* s_w = reinterpret_cast<Vec*>(smem);                     // [NP]
+    float2* s_ps = reinterpret_cast<float2*>(s_w + NP);          // [NP]
+    float* s_part = reinterpret_cast<float*>(s_ps + NP);  // [kWarps][kBins][K]
     const int t = blockIdx.y;
     const float* pf_t = pf + static_cast<size_t>(t) * NP;
     const float* scale_t = scale + static_cast<size_t>(t) * NP;
     const float* w_t = w + static_cast<size_t>(t) * NP * K;
     for (int i = threadIdx.x; i < NP; i += kThreads) {
-        s_pf[i] = pf_t[i];
-        s_scale[i] = scale_t[i];
+        s_ps[i] = make_float2(pf_t[i], scale_t[i]);
+        float x[K];
+#pragma unroll
+        for (int k = 0; k < K; ++k) x[k] = w_t[i * K + k];
+        if constexpr (K == 2) s_w[i] = make_float2(x[0], x[1]);
+        else s_w[i] = make_float4(x[0], x[1], x[2], x[3]);
     }
-    for (int i = threadIdx.x; i < NP * K; i += kThreads) s_w[i] = w_t[i];
     __syncthreads();
 
-    const int f = blockIdx.x * kThreads + threadIdx.x;
-    if (f >= F) return;
-    const float freq = freqs[f];
-    float acc[K];
-#pragma unroll
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    const int f0 = blockIdx.x * kBins;
+    const float freq = freqs[min(f0 + lane, F - 1)];  // the ragged tile's
+    float acc[K];                                     // extra lanes repeat
+#pragma unroll                                        // the last bin
     for (int k = 0; k < K; ++k) acc[k] = 0.0f;
-    for (int p = 0; p < NP; ++p) {
-        const float d = __fmul_rn(__fsub_rn(freq, s_pf[p]), s_scale[p]);
+#pragma unroll 4
+    for (int p = warp; p < NP; p += kWarps) {
+        const float2 ps = s_ps[p];
+        const float d = __fmul_rn(__fsub_rn(freq, ps.x), ps.y);
         const float peak = hann_sinc_peak_fast(d);
+        float wk[K];
+        unpack(s_w[p], wk);
 #pragma unroll
-        for (int k = 0; k < K; ++k) acc[k] = fmaf(peak, s_w[p * K + k], acc[k]);
+        for (int k = 0; k < K; ++k) acc[k] = fmaf(peak, wk[k], acc[k]);
     }
-    float* dst = out + (static_cast<size_t>(t) * F + f) * K;
+    float* part = s_part + (warp * kBins + lane) * K;
 #pragma unroll
-    for (int k = 0; k < K; ++k) dst[k] = acc[k];
+    for (int k = 0; k < K; ++k) part[k] = acc[k];
+    __syncthreads();
+
+    // The 16 warp sums of each (bin, column), added in warp order.
+    if (threadIdx.x < kBins * K) {
+        const int b = threadIdx.x / K;
+        float sum = s_part[threadIdx.x];
+#pragma unroll
+        for (int v = 1; v < kWarps; ++v)
+            sum = __fadd_rn(sum, s_part[v * kBins * K + threadIdx.x]);
+        if (f0 + b < F)
+            out[(static_cast<size_t>(t) * F + f0) * K + threadIdx.x] = sum;
+    }
+}
+
+template <int K>
+void launch(const float* fr, const float* p, const float* sc,
+            const float* wt, float* o, int T, int F, int NP,
+            cudaStream_t s) {
+    const dim3 grid((F + kBins - 1) / kBins, T);
+    const size_t smem = static_cast<size_t>(NP) * (K + 2) * sizeof(float)
+                        + static_cast<size_t>(kWarps) * kBins * K
+                          * sizeof(float);
+    hann_peak_weighted_sum_kernel<K><<<grid, kThreads, smem, s>>>(
+        fr, p, sc, wt, o, F, NP);
 }
 
 }  // namespace
 
 // freqs f32[F]; pf, scale f32[T, NP]; w f32[T, NP, K]; out f32[T, F, K]; all
-// contiguous, K in {2, 4}, NP <= 1024.  Launches on `stream`; returns
-// cudaGetLastError() (cudaErrorInvalidValue for an unsupported K).
+// contiguous, K in {2, 4}, NP <= 1024 (<= 32 KB of shared memory).
+// Launches on `stream`; returns cudaGetLastError() (cudaErrorInvalidValue
+// for an unsupported K or NP).
 extern "C" int vaudio_hann_peak_weighted_sum(
         const void* freqs, const void* pf, const void* scale, const void* w,
         void* out, int T, int F, int NP, int K, void* stream) {
     if (T <= 0 || F <= 0) return cudaSuccess;
-    const dim3 grid((F + kThreads - 1) / kThreads, T);
-    const size_t smem = static_cast<size_t>(NP) * (2 + K) * sizeof(float);
+    if (NP < 0 || NP > 1024) return static_cast<int>(cudaErrorInvalidValue);
     const cudaStream_t s = static_cast<cudaStream_t>(stream);
     const float* fr = static_cast<const float*>(freqs);
     const float* p = static_cast<const float*>(pf);
@@ -114,11 +185,9 @@ extern "C" int vaudio_hann_peak_weighted_sum(
     const float* wt = static_cast<const float*>(w);
     float* o = static_cast<float*>(out);
     if (K == 2) {
-        hann_peak_weighted_sum_kernel<2><<<grid, kThreads, smem, s>>>(
-            fr, p, sc, wt, o, F, NP);
+        launch<2>(fr, p, sc, wt, o, T, F, NP, s);
     } else if (K == 4) {
-        hann_peak_weighted_sum_kernel<4><<<grid, kThreads, smem, s>>>(
-            fr, p, sc, wt, o, F, NP);
+        launch<4>(fr, p, sc, wt, o, T, F, NP, s);
     } else {
         return static_cast<int>(cudaErrorInvalidValue);
     }

@@ -35,7 +35,8 @@ _SIGNATURES = {
     "vaudio_mip_pool_u8": [_P, _P, _I, _I, _I, _I, _F, _F, _P],
     "vaudio_hann_peak_weighted_sum": [_P, _P, _P, _P, _P, _I, _I, _I, _I,
                                       _P],
-    "vaudio_vision_stats": [_P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _P],
+    "vaudio_vision_stats": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F,
+                            _P],
     "vaudio_agc_overlap_add": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                                _F, _F, _P],
 }

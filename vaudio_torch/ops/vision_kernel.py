@@ -6,7 +6,9 @@ histogram over the cells' static tiles, the four clamp-to-edge intensity
 stencils and the per-cell gradient statistics over the linear-slice column
 bands.  It replaces the TPU kernels
 ``vaudio/ops/vision_kernel.py::vision_stats_pallas_batched`` and
-``vision_stats_pallas``; the CUDA source is ``csrc/vision_kernel.cu``.
+``vision_stats_pallas``; the CUDA source is ``csrc/vision_kernel.cu``.  The
+kernel's blocks each take one rectangle of :func:`block_rects`, built here
+on the host and kept on the device per shape.
 
 :func:`vision_stats` routes by device: a CPU tensor runs
 :func:`vision_stats_plain` (the port's vision stages in the kernel's op
@@ -17,12 +19,14 @@ every shape.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
 from vaudio_torch.config import AuralizerConfig
 from vaudio_torch.ops import _build
-from vaudio_torch.vision.features import (acos_fdlibm,
+from vaudio_torch.vision.features import (_cell_tile_bounds, acos_fdlibm,
                                           cell_gradient_stats_planes,
                                           hue_bin_factorization,
                                           hue_histogram_planes,
@@ -31,6 +35,29 @@ from vaudio_torch.vision.features import (acos_fdlibm,
 
 #: Kernel launches so far (a run resets it to 0 and reads it after).
 launches = 0
+
+
+@functools.lru_cache(maxsize=32)
+def block_rects(hm: int, wm: int, grid: int) -> np.ndarray:
+    """The rectangle of each block of the kernel's grid, i32[2 cells, 4] of
+    (y0, rows, x0, columns): first the cells' histogram tiles in cell order
+    (the TPU kernel's static tiles, vaudio/ops/vision_kernel.py:298-304:
+    cell rr * grid + cc spans x band rr and y band cc), then the cells'
+    gradient bands, cw = wm / cells columns each over all rows."""
+    cells = grid * grid
+    xb, yb = _cell_tile_bounds(hm, wm, grid)
+    tiles = [(y0, yh, x0, xw) for x0, xw in xb for y0, yh in yb]
+    cw = wm // cells
+    bands = [(0, hm, c * cw, cw) for c in range(cells)]
+    out = np.array(tiles + bands, dtype=np.int32)
+    out.setflags(write=False)
+    return out
+
+
+@functools.lru_cache(maxsize=32)
+def _device_rects(hm: int, wm: int, grid: int, device) -> torch.Tensor:
+    """:func:`block_rects` on the device, copied once per shape."""
+    return torch.as_tensor(block_rects(hm, wm, grid).copy(), device=device)
 
 
 def supports(hm: int, wm: int, cfg: AuralizerConfig) -> bool:
@@ -75,16 +102,17 @@ def vision_stats(mips, cfg: AuralizerConfig):
         raise ValueError(f"vision_stats: the kernel does not take a "
                          f"{hm}x{wm} mip with this config (see supports)")
     cells, bins = cfg.num_cells, cfg.num_hue_bins
-    if cells * bins * 4 > 227 * 1024:
-        raise ValueError(f"vision_stats: a {cells}x{bins} histogram does "
+    if bins * 4 > 227 * 1024:
+        raise ValueError(f"vision_stats: a histogram of {bins} bins does "
                          f"not fit one block's shared memory")
+    rects = _device_rects(hm, wm, cfg.grid_size, mips.device)
     hist = torch.empty((T, cells, bins), dtype=torch.float32,
                        device=mips.device)
     grads = torch.empty((T, cells, 4), dtype=torch.float32,
                         device=mips.device)
     err = _build.lib().vaudio_vision_stats(
-        mips.data_ptr(), hist.data_ptr(), grads.data_ptr(), T, hm, wm,
-        cfg.grid_size, bins, float(np.float32(cfg.saturation_gate)),
+        mips.data_ptr(), rects.data_ptr(), hist.data_ptr(), grads.data_ptr(),
+        T, hm, wm, cells, bins, float(np.float32(cfg.saturation_gate)),
         float(np.float32(cfg.intensity_gate)), _build.stream_ptr(mips.device))
     _build.check(err, "vision_stats")
     launches += 1
