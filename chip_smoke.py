@@ -21,20 +21,27 @@ Phases, one line each; any failure exits non-zero:
    times;
 5. the offline path: ``Auralizer(config=AuralizerConfig(sample_rate=48000.0,
    channels=2), device="cuda").sonify`` on 64 structured u8 1080p frames,
-   with the kernels' launch counts reset before and read after; then the
+   with the kernels' launch counts reset before and read after (K1, K2 and
+   K4, which runs once for the chunk of 64); then the
    same clip cropped to 256x256 through the port on the card and on the CPU
    (equal hue sequences, PCM within 1e-4);
 6. K3, the vision epilogue, against its plain version on the mips of
    structured 1080p frames (135 x 240) at T=64, 8 and 1: counts exact,
    statistics within atol 1e-6, rtol 1e-5; the same bit checks as K2 (T=1
    against the batch, two calls); both times;
-7. K4, AGC + overlap-add, mono and stereo 4096 samples: within 1e-6;
-   both times;
+7. K4, AGC + overlap-add, in both op orders (the frame order frame by
+   frame, as frame_step calls it), mono and stereo, at T = 1, 8 and 64
+   (and nfft 8192, and a hop not a multiple of 4), and on edge frames:
+   within 1e-6 of its plain version on the card and on the CPU; a T=64
+   chunk-order call equal to 64 chained T=1 calls and to a second call,
+   bit for bit; one device kernel per call; both times at T=1 (frame
+   order), 8 and 64 (chunk order);
 8. the live path: ``Auralizer(source=frames, config=..., device="cuda")
    .run_until_exhausted()`` on 64 structured 1080p frames with
    ``use_pallas`` and ``use_pallas_vision``, per frame and in chunks of 8,
-   the counts reset before each run and read after it (K1-K4 per frame,
-   K1-K3 in chunks); the pulled PCM equal to ``run_offline`` on the card;
+   the counts reset before each run and read after it (K1-K4 in both; K4
+   64 times per frame, 8 times in chunks); the pulled PCM equal to
+   ``run_offline`` on the card;
    a 256x256 crop through the same configuration on the card and on the
    CPU (equal hues, PCM within 1e-4);
 9. a profile of the live path under torch.profiler: device events per
@@ -59,6 +66,7 @@ import re
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -374,6 +382,9 @@ def phase_offline(frames: np.ndarray, smi: str) -> dict:
         fail("offline PCM is not finite or all zero")
     if min(launches["mip_pool_u8"], launches["hann_peak_weighted_sum"]) < 1:
         fail(f"a kernel of the offline path never launched: {launches}")
+    if launches["agc_overlap_add"] != -(-T // CHUNK_T):
+        fail(f"offline: K4 launched {launches['agc_overlap_add']} times for "
+             f"{T} frames in chunks of {CHUNK_T}")
     t1 = time.perf_counter()
     dev_frames = torch.as_tensor(frames, device="cuda")   # pageable copy
     torch.cuda.synchronize()
@@ -456,40 +467,131 @@ def phase_k3(frames: np.ndarray, smi: str) -> list:
     return entries
 
 
-def phase_k4(smi: str) -> dict:
+def k4_err(name: str, got, ref) -> float:
+    """Fail unless pcm and tail are within 1e-6 and the running max within
+    rtol 1e-6 (NaN where the reference has NaN); returns the max abs error
+    of pcm and tail.  The plain version on the card divides by a Python
+    scalar, which CUDA turns into a reciprocal multiply (1 ulp of the
+    norm), so the kernel is exact against it only most of the time."""
+    err = 0.0
+    for g, r in zip(got[:2], ref[:2]):
+        if g.shape != r.shape or not torch.equal(g.isnan(), r.isnan()):
+            fail(f"{name}: shape or NaN positions differ")
+        err = max(err, float((g - r).nan_to_num().abs().max()))
+    gm, rm = float(got[2]), float(ref[2])
+    rel = 0.0 if (gm == rm or (gm != gm and rm != rm)) \
+        else abs(gm - rm) / abs(rm)
+    if not err <= 1e-6 or not rel <= 1e-6:
+        fail(f"{name}: differs from the plain version by {err:.3e} "
+             f"(running max rel {rel:.3e})")
+    return err
+
+
+def phase_k4(smi: str) -> list:
+    """K4 in both op orders (the frame order chained frame by frame, as
+    frame_step calls it), mono and stereo, at T = 1, 8 and 64 (and nfft
+    8192, a hop that is not a multiple of 4, and T = 300, beyond one block
+    of the kernel's frame loop) against the plain version on the card and
+    on the CPU; the edge frames; a T=64 chunk-order call equal to 64
+    chained T=1 calls and to a second call; one device kernel per wrapper
+    call.  Entries at the main paths' shapes: T=1 frame order
+    (``agc_overlap_add``, the live per-frame step), T=8 and T=64 chunk
+    order (the live chunks and the offline chunk)."""
+    from torch.profiler import ProfilerActivity, profile
+    from torch_frames import k4_args, k4_chained, k4_edge_frames, k4_forms
+
     from vaudio_torch.dsp.core import hann_window_norm
     from vaudio_torch.ops import audio_kernel as ak
     rng = np.random.default_rng(0)
-    nfft, e = 4096, None
-    window = torch.as_tensor(hann_window_norm(nfft), device="cuda")
-    scal = [torch.tensor(v, dtype=torch.float32, device="cuda")
-            for v in (0.3, 0.5, 0.2)]
-    for C in (1, 2):
-        shape = (nfft,) if C == 1 else (C, nfft)
-        sig, tail = (torch.as_tensor(rng.normal(size=shape).astype(
-            np.float32), device="cuda") for _ in range(2))
-        got = ak.agc_overlap_add(sig, tail, window, *scal)
-        ref = ak.agc_overlap_add_plain(sig, tail, window, *scal)
-        torch.cuda.synchronize()
-        if got[0].shape != shape[:-1] + (nfft // 2,):
-            fail(f"K4 pcm shape {tuple(got[0].shape)}")
-        err = max(float((g - r).abs().max()) for g, r in zip(got[:2],
-                                                             ref[:2]))
-        rel = abs(float(got[2]) - float(ref[2])) / abs(float(ref[2]))
-        if not err <= 1e-6 or not rel <= 1e-6:
-            fail(f"K4 C={C} differs from the plain version: {err:.3e} "
-                 f"(running max rel {rel:.3e})")
+    exact = total = 0
+    for nfft, Cs, Ts in ((4096, (1, 2), (1, 8, 64)), (8192, (2,), (8,)),
+                         (1000, (2,), (8,)), (4096, (2,), (300,))):
+        for C in Cs:
+            for T in Ts:
+                for order in ("frame", "chunk"):
+                    fn, plain, run = k4_forms(order)
+                    args = k4_args(rng, T, C, nfft, "cuda")
+                    got = run(fn, *args)
+                    ref = run(plain, *args)
+                    torch.cuda.synchronize()
+                    name = f"K4 {order} order C={C} T={T} nfft={nfft}"
+                    k4_err(name, got, ref)
+                    k4_err(name + " (CPU plain)", [x.cpu() for x in got],
+                           run(plain, *(x.cpu() for x in args)))
+                    exact += all(bits_equal(g, r) for g, r in zip(got, ref))
+                    total += 1
+    window = torch.as_tensor(hann_window_norm(4096), device="cuda")
+    sig = torch.as_tensor(k4_edge_frames(rng), device="cuda")
+    tail = torch.zeros((2, 4096), device="cuda")
+    for rmax in (1.0, 1e-30, float("inf"), float("nan"), -1.0):
+        scal = [torch.tensor(v, dtype=torch.float32, device="cuda")
+                for v in (rmax, 0.5, 0.2)]
+        for order in ("frame", "chunk"):
+            fn, plain, run = k4_forms(order)
+            got = run(fn, sig, tail, window, *scal)
+            k4_err(f"K4 edge frames {order} order running max {rmax}", got,
+                   run(plain, sig, tail, window, *scal))
+            if not bool(torch.isfinite(got[0]).all()):
+                fail(f"K4 edge frames {order}: pcm not finite")
+    args = k4_args(rng, CHUNK_T, 2, device="cuda")
+    full = ak.agc_overlap_add_chunk(*args)
+    if not all(bits_equal(a, b)
+               for a, b in zip(full, ak.agc_overlap_add_chunk(*args))):
+        fail(f"K4 T={CHUNK_T}: two calls differ")
+    if not all(bits_equal(a, b) for a, b in
+               zip(k4_chained(ak.agc_overlap_add_chunk, *args), full)):
+        fail(f"K4 T={CHUNK_T}: differs from {CHUNK_T} chained T=1 calls")
+    # The profiler can lose device records, never add any: every recorded
+    # kernel must be K4's, at most two a wrapper call.
+    one = [args[0][0]] + args[1:]
+    for what, call in (("chunk", lambda: ak.agc_overlap_add_chunk(*args)),
+                       ("frame", lambda: ak.agc_overlap_add(*one))):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(10):
+                call()
+            torch.cuda.synchronize()
+        kernels = [e.name for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        if not (1 <= len(kernels) <= 20
+                and all("agc_overlap_add" in k for k in kernels)):
+            fail(f"K4 {what} order: device kernels of 10 calls: {kernels}")
+    say(f"K4 agc_overlap_add: {total} shapes x orders (C=1,2; T=1,8,64,300; "
+        f"nfft 4096, 8192, 1000) within 1e-6 of the plain version on the "
+        f"card and on the CPU, {exact} of them bit for bit on the card; "
+        f"edge frames (zero, NaN, +-inf, FLT_MAX, denormal; running max 1, "
+        f"1e-30, inf, NaN, -1) within 1e-6 and finite; T={CHUNK_T} equal to "
+        f"{CHUNK_T} chained T=1 calls and to a second call, bit for bit; "
+        f"{len(kernels) / 10:g} device kernels per call ({smi})")
+
+    entries = []
+    for T, order, path in ((1, "frame", "live_frame"),
+                           (LIVE_CHUNK, "chunk", "live_chunk"),
+                           (CHUNK_T, "chunk", "offline")):
+        args = k4_args(rng, T, 2, device="cuda")
+        if T == 1:       # the per-frame wrapper, as frame_step calls it
+            one = [args[0][0]] + args[1:]
+            fn = lambda: ak.agc_overlap_add(*one)               # noqa: E731
+            plain_fn = lambda: ak.agc_overlap_add_plain(*one)   # noqa: E731
+        else:
+            fn = lambda: ak.agc_overlap_add_chunk(*args)        # noqa: E731
+            plain_fn = lambda: ak.agc_overlap_add_chunk_plain(  # noqa: E731
+                *args)
+        err = k4_err(f"K4 T={T}", fn(), plain_fn())
+        nfft, C = 4096, 2
         hop = nfft // 2
-        e = entry("agc_overlap_add", "vaudio_torch/csrc/audio_kernel.cu",
-                  "vaudio/ops/audio_kernel.py:70", err,
-                  lambda: ak.agc_overlap_add(sig, tail, window, *scal),
-                  lambda: ak.agc_overlap_add_plain(sig, tail, window, *scal),
-                  nbytes=4 * (C * nfft + C * hop + nfft + 3 + C * hop
-                              + C * nfft + 1),
-                  ops=C * nfft * 9 + C * hop, path="live_frame")
-        say(f"K4 agc_overlap_add C={C} nfft={nfft}: max_abs_err {err:.3e}, "
-            f"running max rel {rel:.1e}; {timing(e)} ({smi})")
-    return e                     # stereo: the live path's shape
+        # Read once: the signals, the tail's second half (all the kernel
+        # and the function read of it), the window and three scalars;
+        # written once: pcm, the new tail and the running max.
+        e = entry("agc_overlap_add" + ("" if T == 1 else f"_t{T}"),
+                  "vaudio_torch/csrc/audio_kernel.cu",
+                  "vaudio/ops/audio_kernel.py:70", err, fn, plain_fn,
+                  nbytes=4 * (T * C * nfft + C * hop + nfft + 3
+                              + T * C * hop + C * nfft + 1),
+                  ops=T * (6 * C * nfft + C * hop), path=path)
+        say(f"K4 agc_overlap_add {order} order T={T} stereo nfft={nfft}: "
+            f"max_abs_err {err:.3e}; {timing(e)} ({smi})")
+        entries.append(e)
+    return entries
 
 
 def phase_live(frames: np.ndarray, smi: str) -> dict:
@@ -512,11 +614,14 @@ def phase_live(frames: np.ndarray, smi: str) -> dict:
         counts[path] = launches = read_counts()
         m = aur.metrics
         got = aur.pull(LIVE_T * cfg.hop_size * cfg.channels)
-        need = (["mip_pool_u8", "hann_peak_weighted_sum", "vision_stats"]
-                + (["agc_overlap_add"] if chunk == 1 else []))
+        need = ["mip_pool_u8", "hann_peak_weighted_sum", "vision_stats",
+                "agc_overlap_add"]
         if min(launches[k] for k in need) < 1:
             fail(f"live chunk_frames={chunk}: a kernel of the path never "
                  f"launched: {launches}")
+        if launches["agc_overlap_add"] != LIVE_T // chunk:
+            fail(f"live chunk_frames={chunk}: K4 launched "
+                 f"{launches['agc_overlap_add']} times in {LIVE_T} frames")
         if m["frames_processed"] != LIVE_T or m["dropped_frames"]:
             fail(f"live chunk_frames={chunk}: {m}")
         # The stream dispatches whole chunks and single-steps the rest.
@@ -658,6 +763,7 @@ def main() -> None:
         fail("torch.cuda.is_available() is False: this smoke test runs "
              "only on a GPU")
     import vaudio_torch  # noqa: F401  (fails outside the repository)
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
     smi = phase_env()
     phase_build(smi)
     t0 = time.perf_counter()
@@ -666,7 +772,7 @@ def main() -> None:
         f"{time.perf_counter() - t0:.1f} s on the host ({smi})")
     kernels = [phase_k1(smi), *phase_k2(smi)]
     counts = {"offline": phase_offline(frames[:CHUNK_T], smi)}
-    kernels += [*phase_k3(frames, smi), phase_k4(smi)]
+    kernels += [*phase_k3(frames, smi), *phase_k4(smi)]
     counts.update(phase_live(frames, smi))
     phase_profile(frames, smi)
     phase_realtime(frames, smi)

@@ -11,7 +11,8 @@ import numpy as np
 import pytest
 import torch
 
-from torch_frames import structured_frames
+from torch_frames import (k4_args, k4_chained, k4_edge_frames, k4_forms,
+                          structured_frames)
 from vaudio_torch.config import AuralizerConfig
 from vaudio_torch.api import Auralizer
 from vaudio_torch.dsp.core import hann_sinc_peak_fast, hann_window_norm
@@ -170,14 +171,17 @@ def test_wrappers_count_launches_and_check_inputs(dev):
 
 @pytest.mark.parametrize("channels", [1, 2])
 def test_chunked_slice_on_the_card_matches_the_cpu(dev, channels):
-    """Both kernels on the main path; hues equal, PCM within 1e-4."""
+    """K1, K2 and K4 on the main path, once a chunk; hues equal, PCM within
+    1e-4."""
     cfg = AuralizerConfig(channels=channels)
     frames = structured_frames(0, 12, 192, 256)
-    counts = (pool_kernel.launches, spectrum_kernel.launches)
+    counts = (pool_kernel.launches, spectrum_kernel.launches,
+              audio_kernel.launches)
     a_gpu, c_gpu, d_gpu = chunked.run_offline_batched(
         frames, cfg, chunk=8, debug=True, device=dev)
     assert pool_kernel.launches - counts[0] == 2
     assert spectrum_kernel.launches - counts[1] == 2
+    assert audio_kernel.launches - counts[2] == 2
     a_cpu, c_cpu, d_cpu = chunked.run_offline_batched(
         frames, cfg, chunk=8, debug=True, device="cpu")
     assert torch.equal(d_gpu["hues"].cpu(), d_cpu["hues"])
@@ -305,8 +309,9 @@ def test_k3_k4_wrappers_check_inputs(dev):
 @pytest.mark.parametrize("chunk_frames", [1, 4])
 def test_live_stream_on_the_card_equals_run_offline(dev, chunk_frames):
     """The live configuration (K3 and K4 on) streamed on the card: the
-    pulled PCM equals the offline run on the card; per frame all four
-    kernels launch, in chunks K1, K2 and K3."""
+    pulled PCM equals the offline run on the card; all four kernels launch
+    once per frame, or once per chunk (the 2 frames left over after two
+    chunks of 4 go frame by frame)."""
     cfg = AuralizerConfig(channels=2, use_pallas=True,
                           use_pallas_vision=True, ring_buffer_frames=64)
     frames = structured_frames(3, 10, 192, 256)
@@ -321,10 +326,142 @@ def test_live_stream_on_the_card_equals_run_offline(dev, chunk_frames):
         assert launched == [10, 10, 10, 10]
         ref, _, _ = step.run_offline(frames, cfg, device=dev)
     else:
-        assert launched == [4, 4, 4, 2]
+        assert launched == [4, 4, 4, 4]
         head, carry, _ = chunked.run_offline_batched(frames[:8], cfg,
                                                      chunk=4, device=dev)
         tail, _, _ = step.run_offline(frames[8:], cfg, carry=carry,
                                       device=dev)
         ref = torch.cat([head, tail])
     np.testing.assert_array_equal(got, ref.cpu().numpy().reshape(-1))
+
+
+def assert_k4_close(got, ref):
+    """pcm and tail within 1e-6, the running max within rtol 1e-6: the
+    plain version on the card divides by the sigmoid's Python-scalar bound,
+    which CUDA turns into a reciprocal multiply, so its norm can be 1 ulp
+    from the kernel's true division (the CPU's and the JAX package's)."""
+    assert got[0].shape == ref[0].shape and got[1].shape == ref[1].shape
+    for g, r in zip(got[:2], ref[:2]):
+        torch.testing.assert_close(g, r, rtol=0, atol=1e-6, equal_nan=True)
+    torch.testing.assert_close(got[2], ref[2], rtol=1e-6, atol=0,
+                               equal_nan=True)
+
+
+@pytest.mark.parametrize("nfft", [4096, 8192, 1000])
+@pytest.mark.parametrize("T", [1, 8, 64, 300])
+@pytest.mark.parametrize("channels", [1, 2])
+@pytest.mark.parametrize("order", ["chunk", "frame"])
+def test_k4_chunk_matches_plain(dev, gen, order, channels, T, nfft):
+    """K4 in both op orders (the frame order chained frame by frame, as
+    frame_step calls it), mono and stereo, at the live (1, 8) and offline
+    (64) T and beyond one block of frames (300), at nfft 4096, above it,
+    and at a hop that is not a multiple of 4 (scalar loads): one launch a
+    chunk in the chunk order, one a frame in the frame order; within the
+    band of assert_k4_close of the plain version on the card and of the
+    plain version on the CPU."""
+    fn, plain, run = k4_forms(order)
+    args = k4_args(gen, T, channels, nfft, device=dev)
+    before = audio_kernel.launches
+    got = run(fn, *args)
+    assert audio_kernel.launches == before + (1 if order == "chunk" else T)
+    assert_k4_close(got, run(plain, *args))
+    cpu = run(plain, *(x.cpu() for x in args))
+    assert_k4_close([x.cpu() for x in got], cpu)
+
+
+def sigmoid_normalize_true_division(x, M, k: float = 2.0):
+    """dsp.core.sigmoid_normalize with its last divisor a device scalar:
+    CUDA divides by it as the CPU and the kernel do, where it multiplies by
+    the reciprocal of a Python float."""
+    kf = float(np.float32(k))
+    scaled = x / M
+    g = 1.0 / (1.0 + torch.exp(-kf * (scaled - 0.5)))
+    g0 = 1.0 / (1.0 + np.exp(-k * (0.0 - 0.5)))
+    g1 = 1.0 / (1.0 + np.exp(-k * (1.0 - 0.5)))
+    return (g - float(np.float32(g0))) / torch.tensor(
+        np.float32(g1 - g0), device=x.device)
+
+
+@pytest.mark.parametrize("T", [1, 8, 64])
+@pytest.mark.parametrize("channels", [1, 2])
+@pytest.mark.parametrize("order", ["chunk", "frame"])
+def test_k4_is_bit_exact_against_true_division(dev, gen, monkeypatch, order,
+                                               channels, T):
+    """With the plain versions' one Python-scalar division made a true
+    division, the kernel equals them bit for bit: the 1e-6 band of
+    assert_k4_close is that division's rounding and nothing else."""
+    monkeypatch.setattr(audio_kernel, "sigmoid_normalize",
+                        sigmoid_normalize_true_division)
+    fn, plain, run = k4_forms(order)
+    args = k4_args(gen, T, channels, device=dev)
+    got = run(fn, *args)
+    ref = run(plain, *args)
+    assert all(bits_equal(g, r) for g, r in zip(got, ref))
+
+
+@pytest.mark.parametrize("rmax", [1.0, 0.3, 1e-30, np.inf, np.nan, -1.0])
+@pytest.mark.parametrize("order", ["chunk", "frame"])
+def test_k4_edge_frames_match_plain(dev, gen, order, rmax):
+    """The edge frames in one chunk (chained in the frame order), after a
+    carried running max that is ordinary, tiny, infinite, NaN or negative
+    (norm 0): the kernel's one reduction a frame gives the plain version's
+    two, NaN where it has NaN (only the running max can be); in the chunk
+    order the chunk equals its frames chained one by one, bit for bit."""
+    fn, plain, run = k4_forms(order)
+    sig = torch.as_tensor(k4_edge_frames(gen), device=dev)
+    tail = torch.as_tensor(gen.normal(size=(2, 4096)).astype(np.float32),
+                           device=dev)
+    window = torch.as_tensor(hann_window_norm(4096), device=dev)
+    args = [sig, tail, window] + [
+        torch.tensor(v, dtype=torch.float32, device=dev)
+        for v in (rmax, 0.5, 0.2)]
+    got = run(fn, *args)
+    assert_k4_close(got, run(plain, *args))
+    assert bool(torch.isfinite(got[0]).all())
+    if order == "chunk":
+        assert all(bits_equal(a, b)
+                   for a, b in zip(k4_chained(fn, *args), got))
+
+
+@pytest.mark.parametrize("T", [64, 300])
+@pytest.mark.parametrize("channels", [1, 2])
+def test_k4_t64_equals_chained_frames_and_itself(dev, gen, channels, T):
+    """A T=64 call equals 64 chained T=1 calls and a second call, bit for
+    bit; so does a T=300 call, which the kernel takes in two blocks of
+    frames."""
+    fn = audio_kernel.agc_overlap_add_chunk
+    args = k4_args(gen, T, channels, device=dev)
+    got = fn(*args)
+    assert all(bits_equal(a, b) for a, b in zip(got, fn(*args)))
+    assert all(bits_equal(a, b) for a, b in zip(k4_chained(fn, *args), got))
+
+
+@pytest.mark.parametrize("T", [1, 8, 64])
+def test_k4_is_one_launch_per_chunk(dev, gen, T):
+    """Under torch.profiler, 10 wrapper calls run only K4's device kernel,
+    at most twice a call (the design allows two; it takes one).  The
+    profiler can lose device records, never add any, so the count is
+    bounded above and each recorded kernel must be K4's."""
+    from torch.profiler import ProfilerActivity, profile
+    args = k4_args(gen, T, 2, device=dev)
+    audio_kernel.agc_overlap_add_chunk(*args)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(10):
+            audio_kernel.agc_overlap_add_chunk(*args)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert 1 <= len(names) <= 2 * 10
+    assert all("agc_overlap_add" in n for n in names), names
+
+
+def test_k4_chunk_wrapper_checks_inputs(dev):
+    z = torch.zeros((2, 4096), device=dev)
+    one = torch.ones((), device=dev)
+    with pytest.raises(ValueError, match="ola_tail"):
+        audio_kernel.agc_overlap_add_chunk(z, z, z[0], one, one, one)
+    with pytest.raises(ValueError, match="C = 1 or 2"):
+        audio_kernel.agc_overlap_add_chunk(
+            torch.zeros((1, 3, 4096), device=dev),
+            torch.zeros((3, 4096), device=dev), z[0], one, one, one)

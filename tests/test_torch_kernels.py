@@ -1,7 +1,8 @@
 """The plain PyTorch versions of kernels K1-K4 against the TPU kernels
 they replace (Pallas in interpret mode, as tests/test_pallas.py runs them),
-and the wrappers' device routing.  The CUDA kernels themselves are held
-to these plain versions on the card (tests/test_torch_cuda.py,
+K4's T-frame forms against their chained frames and its one-reduction
+rule, and the wrappers' device routing.  The CUDA kernels themselves are
+held to these plain versions on the card (tests/test_torch_cuda.py,
 chip_smoke.py)."""
 
 import dataclasses
@@ -13,6 +14,7 @@ import torch
 import jax.numpy as jnp
 
 from vaudio_torch.config import AuralizerConfig
+from vaudio_torch.dsp.core import sigmoid_normalize
 from vaudio.dsp import hann_window_norm
 from vaudio.ops import vision_kernel as jax_vision_kernel
 from vaudio.ops.audio_kernel import agc_overlap_add as jax_agc_overlap_add
@@ -20,6 +22,7 @@ from vaudio.ops.pool_kernel import mip_pool_pallas
 from vaudio.ops.spectrum_kernel import hann_peak_weighted_sum_batched
 from vaudio.runtime.chunked import _batched_contraction
 from vaudio.synth import SynthConstants as JaxConsts
+from torch_frames import k4_args, k4_chained, k4_edge_frames, k4_forms
 from vaudio_torch.ops import (_build, audio_kernel, pool_kernel,
                               spectrum_kernel, vision_kernel)
 
@@ -249,6 +252,84 @@ def test_k4_plain_equals_the_unfused_tail(rng):
         (1.0 / (1.0 + np.exp(-1.0))) - (1.0 / (1.0 + np.exp(1.0))))
 
 
+def bits(x):
+    return x.contiguous().view(torch.int32)
+
+
+@pytest.mark.parametrize("channels", [1, 2])
+def test_k4_chunk_plain_equals_chained_frames(rng, channels):
+    """A call on T=8 frames equals 8 chained T=1 calls of itself, carrying
+    the running max and the tail, bit for bit: what the CUDA kernel's
+    one-launch recurrence must reproduce."""
+    args = k4_args(rng, 8, channels)
+    pcm, new_tail, new_max = audio_kernel.agc_overlap_add_chunk(*args)
+    assert pcm.shape == (8, 2048) + ((channels,) if channels > 1 else ())
+    p, tl, rm = k4_chained(audio_kernel.agc_overlap_add_chunk, *args)
+    assert torch.equal(bits(p), bits(pcm))
+    assert torch.equal(bits(tl), bits(new_tail))
+    assert torch.equal(bits(rm), bits(new_max))
+
+
+# Carried running maxima: ordinary, tiny, infinite, NaN, and negative (which
+# drives the sigmoid below g(0): norm = 0, so peak / norm = inf).
+K4_EDGE_RMAX = [1.0, 0.3, 1e-30, np.inf, np.nan, -1.0]
+
+
+@pytest.mark.parametrize("order", ["chunk", "frame"])
+@pytest.mark.parametrize("rmax", K4_EDGE_RMAX)
+def test_k4_second_peak_follows_from_the_first(rng, order, rmax):
+    """The CUDA kernel takes one max reduction a frame: max|y| of the
+    normalised frame y from m = max|x| alone, as csrc/audio_kernel.cu's
+    frame_scalars does (chunk order: m * s where m is finite, else 0; frame
+    order: m / v where m is finite and v is not NaN, else 0).  Rounding is
+    monotone and sign-symmetric, so this equals the reduction bit for bit,
+    in torch f32, on random and edge frames."""
+    rm = torch.tensor(np.float32(rmax))
+    for x in t(k4_edge_frames(rng)):
+        m = torch.amax(torch.abs(x))
+        p = m + 1e-9
+        attacked = 0.5 * p + (1.0 - 0.5) * rm
+        released = 0.2 * p + (1.0 - 0.2) * rm
+        new_max = torch.where(p > rm, attacked, released)
+        norm = torch.clamp(sigmoid_normalize(p, new_max), 0.0, 1.0)
+        v = p / norm
+        if order == "chunk":
+            inv = 1.0 / v
+            sc = torch.where(torch.isfinite(inv), inv, torch.zeros_like(inv))
+            y = x * sc
+            derived = torch.where(torch.isfinite(m), m * sc,
+                                  torch.zeros_like(m))
+        else:
+            sc = v
+            y = x / sc
+            derived = torch.where(torch.isfinite(m) & ~torch.isnan(sc),
+                                  m / sc, torch.zeros_like(m))
+        y = torch.where(torch.isfinite(y), y, torch.zeros_like(y))
+        reduced = torch.amax(torch.abs(y))
+        assert torch.equal(bits(derived), bits(reduced)), \
+            (order, rmax, float(m), float(sc), float(reduced),
+             float(derived))
+
+
+@pytest.mark.parametrize("order", ["chunk", "frame"])
+def test_k4_chunk_plain_edge_frames_stay_finite(rng, order):
+    """The edge frames chained one by one through the frame order and the
+    chunk order: the pcm and tail are finite (non-finite samples become
+    0); in the chunk order one call on them all gives the same bits."""
+    sig = t(k4_edge_frames(rng))
+    tail = t(rng.normal(size=(2, 4096)).astype(np.float32))
+    args = [sig, tail, t(hann_window_norm(4096))] + [
+        torch.tensor(np.float32(v)) for v in (1.0, 0.5, 0.2)]
+    pcm, new_tail, new_max = k4_chained(k4_forms(order)[0], *args)
+    assert pcm.shape == (sig.shape[0], 2048, 2)
+    assert bool(torch.isfinite(pcm).all()) and bool(
+        torch.isfinite(new_tail).all())
+    if order == "chunk":
+        whole = audio_kernel.agc_overlap_add_chunk(*args)
+        assert all(torch.equal(bits(a), bits(b))
+                   for a, b in zip(whole, (pcm, new_tail, new_max)))
+
+
 def test_cpu_tensors_take_the_plain_versions_without_counting(rng):
     frames = t(rng.integers(0, 256, (1, 32, 32, 3), dtype=np.uint8))
     pf, scale, w = k2_inputs(rng, 1, 2)
@@ -261,6 +342,8 @@ def test_cpu_tensors_take_the_plain_versions_without_counting(rng):
     z = torch.zeros(4096)
     audio_kernel.agc_overlap_add(z, z, z, torch.tensor(1.0),
                                  torch.tensor(1.0), torch.tensor(1.0))
+    audio_kernel.agc_overlap_add_chunk(z[None], z, z, torch.tensor(1.0),
+                                       torch.tensor(1.0), torch.tensor(1.0))
     assert [m.launches for m in mods] == before
 
 
@@ -283,6 +366,9 @@ def test_wrappers_raise_for_a_device_without_kernel():
     with pytest.raises(ValueError, match="no kernel"):
         audio_kernel.agc_overlap_add(sig, sig, sig, *(torch.empty(
             (), device="meta") for _ in range(3)))
+    with pytest.raises(ValueError, match="no kernel"):
+        audio_kernel.agc_overlap_add_chunk(sig[None], sig, sig, *(
+            torch.empty((), device="meta") for _ in range(3)))
 
 
 def test_build_is_keyed_by_the_sources():

@@ -145,21 +145,23 @@ def test_vision_kernel_path_matches_jax(monkeypatch, run, channels):
 
 
 @pytest.mark.parametrize("flags,H,W,expect", [
-    (dict(use_pallas=True), 64, 128, (0, 4, 0, 0)),
-    (dict(use_pallas_audio=True), 64, 128, (0, 4, 0, 0)),
-    (dict(use_pallas_vision=True), 64, 128, (4, 0, 2, 0)),
-    (dict(use_pallas_vision=True), 64, 64, (0, 0, 0, 0)),   # wm % 16 != 0
-    ({}, 64, 128, (0, 0, 0, 0)),
+    (dict(use_pallas=True), 64, 128, (0, 4, 0, 2)),
+    (dict(use_pallas_audio=True), 64, 128, (0, 4, 0, 2)),
+    (dict(use_pallas_vision=True), 64, 128, (4, 0, 2, 2)),
+    (dict(use_pallas_vision=True), 64, 64, (0, 0, 0, 2)),   # wm % 16 != 0
+    ({}, 64, 128, (0, 0, 0, 2)),
 ])
 def test_kernel_flags_route_through_the_wrappers(monkeypatch, flags, H, W,
                                                  expect):
     """The flags send the per-frame step (4 frames) and the chunked pass A
-    (chunks of 2) through the K3 and K4 wrappers, exactly where the JAX
-    package calls its kernels: K3 in frame_stats for the shapes
-    ``supports`` takes, K4 in the per-frame audio tail only.  Counted as
-    (K3 per frame, K4 per frame, K3 chunked, K4 chunked)."""
+    (chunks of 2) through the K3 and K4 wrappers: K3 in frame_stats for the
+    shapes ``supports`` takes, where the JAX package calls its kernel; K4
+    in the per-frame audio tail under the flags, as the JAX package, and
+    once per chunk in the chunked audio tail whatever the flags (the JAX
+    chunked tail has none).  Counted as (K3 per frame, K4 per frame, K3
+    chunked, K4 chunked)."""
     from vaudio_torch.ops import audio_kernel, vision_kernel
-    calls = {"k3": 0, "k4": 0}
+    calls = {"k3": 0, "k4": 0, "k4c": 0}
 
     def counting(name, fn):
         def wrapper(*args, **kwargs):
@@ -171,13 +173,17 @@ def test_kernel_flags_route_through_the_wrappers(monkeypatch, flags, H, W,
                         counting("k3", vision_kernel.vision_stats))
     monkeypatch.setattr(step, "agc_overlap_add",
                         counting("k4", audio_kernel.agc_overlap_add))
+    monkeypatch.setattr(chunked, "agc_overlap_add_chunk",
+                        counting("k4c", audio_kernel.agc_overlap_add_chunk))
     cfg = AuralizerConfig(**flags)
     frames = structured_frames(10, 4, H, W)
     step.run_offline(frames, cfg, device="cpu")
     per_frame = (calls["k3"], calls["k4"])
+    assert calls["k4c"] == 0
     calls.update(k3=0, k4=0)
     chunked.run_offline_batched(frames, cfg, chunk=2, device="cpu")
-    assert per_frame + (calls["k3"], calls["k4"]) == expect
+    assert per_frame + (calls["k3"], calls["k4c"]) == expect
+    assert calls["k4"] == 0
 
 
 def test_blocked_run_offline_equals_chunked():

@@ -1,7 +1,12 @@
-"""Structured u8 test clips for the PyTorch port's parity tests (numpy only,
-so the GPU-only tests can use it without jax)."""
+"""Structured u8 test clips for the PyTorch port's parity tests, and the
+inputs of the audio tail K4 (numpy and torch only, so the GPU-only tests
+and chip_smoke.py can use it without jax)."""
 
 import numpy as np
+import torch
+
+from vaudio_torch.dsp.core import hann_window_norm
+from vaudio_torch.ops import audio_kernel
 
 
 def _mid_bin_colors(seed: int = 1):
@@ -51,3 +56,75 @@ def structured_frames(seed: int, T: int, H: int, W: int, mip: int = 3,
             prev[k] = (9 * prev[k] + _BINS[pick[k]]) // 10
         frames[t, :cell.shape[0], :cell.shape[1]] = _COLORS[pick][cell]
     return frames
+
+
+def k4_edge_frames(rng) -> np.ndarray:
+    """f32 stereo frames (11, 2, 4096) for the audio tail: random at three
+    scales, all zero, one NaN, one +inf, one -inf, one value near FLT_MAX,
+    values near 3e37, and denormal values."""
+    frames = [rng.normal(size=(2, 4096)).astype(np.float32) * s
+              for s in (1.0, 1e-3, 40.0)]
+    frames.append(np.zeros((2, 4096), np.float32))
+    for pos, v in (((0, 5), np.nan), ((1, 7), np.inf), ((0, 9), -np.inf)):
+        f = rng.normal(size=(2, 4096)).astype(np.float32)
+        f[pos] = v
+        frames.append(f)
+    big = rng.uniform(-1, 1, (2, 4096)).astype(np.float32)
+    big[0, 0] = np.float32(3.4e38)
+    frames.append(big)
+    for scale in (3e37, 1e-39):
+        frames.append(rng.uniform(-1, 1, (2, 4096)).astype(np.float32)
+                      * np.float32(scale))
+    return np.stack(frames)
+
+
+def k4_args(rng, T: int, channels: int, nfft: int = 4096,
+            device="cpu") -> list:
+    """K4's arguments on ``device``: signals f32[T, (C,) nfft] whose peaks
+    move from frame to frame (so the running max takes both its attack and
+    its release branch), a random carried tail f32[(C,) nfft], the window,
+    and (running max, attack, release) = (0.3, 0.5, 0.2)."""
+    shape = (T, nfft) if channels == 1 else (T, channels, nfft)
+    sig = rng.normal(size=shape).astype(np.float32)
+    sig *= rng.uniform(0.01, 3.0, (T,) + (1,) * (len(shape) - 1)).astype(
+        np.float32)
+    tail = rng.normal(size=shape[1:]).astype(np.float32)
+    return ([torch.as_tensor(x, device=device)
+             for x in (sig, tail, hann_window_norm(nfft))]
+            + [torch.tensor(v, dtype=torch.float32, device=device)
+               for v in (0.3, 0.5, 0.2)])
+
+
+def k4_frame_call(agc_overlap_add):
+    """The one-frame K4 ``agc_overlap_add`` (pcm f32[(C,) hop]) called as
+    the chunk form at T=1 (signals f32[1, (C,) nfft] -> pcm f32[1, hop(,
+    C)])."""
+    def call(signals, *rest):
+        pcm, tail, running_max = agc_overlap_add(signals[0], *rest)
+        return (pcm if pcm.ndim == 1 else pcm.T)[None], tail, running_max
+    return call
+
+
+def k4_chained(call, signals, tail, window, running_max, attack, release):
+    """``signals`` through ``call`` (the chunk form) one frame at a time,
+    the tail and the running max carried: (pcm f32[T, hop(, C)], the last
+    tail, the last running max)."""
+    outs = []
+    for k in range(signals.shape[0]):
+        pcm, tail, running_max = call(signals[k:k + 1], tail, window,
+                                      running_max, attack, release)
+        outs.append(pcm)
+    return torch.cat(outs), tail, running_max
+
+
+def k4_forms(order: str):
+    """(wrapper, plain version, run) of K4's op ``order``; run(fn, *args)
+    takes a chunk through fn: in one call in the chunk order, frame by
+    frame through ``agc_overlap_add`` (as frame_step calls it) in the frame
+    order."""
+    if order == "chunk":
+        return (audio_kernel.agc_overlap_add_chunk,
+                audio_kernel.agc_overlap_add_chunk_plain,
+                lambda fn, *args: fn(*args))
+    return (k4_frame_call(audio_kernel.agc_overlap_add),
+            k4_frame_call(audio_kernel.agc_overlap_add_plain), k4_chained)

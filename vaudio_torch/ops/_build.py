@@ -38,7 +38,7 @@ _SIGNATURES = {
     "vaudio_vision_stats": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F,
                             _P],
     "vaudio_agc_overlap_add": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
-                               _F, _F, _P],
+                               _I, _I, _F, _F, _P],
 }
 
 _lock = threading.Lock()

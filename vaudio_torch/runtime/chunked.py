@@ -3,10 +3,10 @@
 
 The same math as T :func:`vaudio_torch.runtime.step.frame_step` calls,
 with every per-frame stage batched over the chunk and only the serial
-recurrences left as Python loops of small launches: the hue EMA, the
-spectrum EMA and the AGC running max (``lax.scan`` in the JAX package).
-On CUDA tensors the mip pool and the spectrum contraction run as the CUDA
-kernels K1 and K2 (``vaudio_torch.ops``).
+recurrences left as Python loops of small launches: the hue EMA and the
+spectrum EMA (``lax.scan`` in the JAX package).  On CUDA tensors the mip
+pool, the spectrum contraction and the audio tail with its running-max
+recurrence run as the CUDA kernels K1, K2 and K4 (``vaudio_torch.ops``).
 """
 
 from __future__ import annotations
@@ -19,8 +19,8 @@ import torch
 from vaudio_torch import check_config
 from vaudio_torch import device as pick_device
 from vaudio_torch.config import AuralizerConfig
-from vaudio_torch.dsp.core import (hann_window_norm, irfft_from_half,
-                                   sigmoid_normalize)
+from vaudio_torch.dsp.core import hann_window_norm, irfft_from_half
+from vaudio_torch.ops.audio_kernel import agc_overlap_add_chunk
 from vaudio_torch.runtime.step import (StepCarry, carry_from_numpy,
                                        check_frames, frames_to_device,
                                        init_carry, params_to_device)
@@ -59,7 +59,6 @@ def chunk_pipeline(carry: StepCarry, frames, params: Dict[str, Any],
     channels] stereo, and with ``debug`` also hues, grads and spectrum
     per frame.  ``params`` as from :func:`runtime.step.params_to_device`."""
     check_config(cfg)
-    ch = cfg.channels
     mixing = params["spectrum_mixing"]
     T = frames.shape[0]
 
@@ -110,39 +109,14 @@ def chunk_pipeline(carry: StepCarry, frames, params: Dict[str, Any],
         spec_list.append(prev)
     spectra = torch.stack(spec_list)
 
-    # ---- pass C2: audio tail, scalars serial / samples batched ----
+    # ---- pass C2: audio tail, one call of K4 over the chunk ----
     signals = irfft_from_half(spectra)                  # (T, [ch,] nfft)
-    axes = tuple(range(1, signals.ndim))
-    peaks = torch.amax(torch.abs(signals), dim=axes) + 1e-9
-    attack, release = params["attack"], params["release"]
-    rm = carry.running_max
-    max_list = []
-    for t in range(T):
-        p = peaks[t]
-        attacked = attack * p + (1.0 - attack) * rm
-        released = release * p + (1.0 - release) * rm
-        rm = torch.where(p > rm, attacked, released)
-        max_list.append(rm)
-    new_maxes = torch.stack(max_list)
-    norm_factor = torch.clamp(sigmoid_normalize(peaks, new_maxes), 0.0, 1.0)
-    inv = 1.0 / (peaks / norm_factor)
-    scale = torch.where(torch.isfinite(inv), inv, torch.zeros_like(inv))
-    bshape = (T,) + (1,) * (signals.ndim - 1)
-    normalized = signals * scale.reshape(bshape)
-    normalized = torch.where(torch.isfinite(normalized), normalized,
-                             torch.zeros_like(normalized))
-
-    hop = cfg.hop_size
-    fpeaks = torch.amax(torch.abs(normalized), dim=axes)
-    gains = 1.0 / (fpeaks + 1e-6)
-    windowed = normalized * gains.reshape(bshape) * window
-    prev_tails = torch.cat([carry.ola_tail[None], windowed[:-1]])
-    pcm = prev_tails[..., hop:] + windowed[..., :hop]
-    if ch != 1:
-        pcm = pcm.transpose(1, 2)                       # (T, hop, channels)
+    pcm, ola_tail, rm = agc_overlap_add_chunk(
+        signals, carry.ola_tail, window, carry.running_max,
+        params["attack"], params["release"])            # (T, hop[, ch])
 
     new_carry = StepCarry(hues=hues_seq[-1], phases=phases_seq[-1],
-                          prev_spectrum=prev, ola_tail=windowed[-1],
+                          prev_spectrum=prev, ola_tail=ola_tail,
                           running_max=rm)
     out: Dict[str, Any] = {"pcm": pcm}
     if debug:

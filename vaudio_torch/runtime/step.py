@@ -90,8 +90,9 @@ def synth_audio(spectrum, ola_tail, running_max, params: Dict[str, Any],
     """irfft -> AGC -> overlap-add (SoundEngine.swift:403-428); stereo
     shares one AGC/OLA gain and returns pcm as (hop, channels).  With
     ``cfg.use_pallas`` or ``cfg.use_pallas_audio`` the AGC and overlap-add
-    are kernel K4 (:func:`ops.audio_kernel.agc_overlap_add`), as the JAX
-    package runs its fused kernel there.
+    are kernel K4 at T=1 in the frame order
+    (:func:`ops.audio_kernel.agc_overlap_add`), as the JAX package runs its
+    fused kernel there.
     Returns (pcm, new_ola_tail, new_running_max)."""
     signal = irfft_from_half(spectrum)
     if cfg.use_pallas or cfg.use_pallas_audio:
