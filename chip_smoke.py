@@ -14,40 +14,56 @@ Phases, one line each; any failure exits non-zero:
 3. K1, the u8 mip pool, against its plain PyTorch version on
    u8 [8, 1080, 1920, 3] frames at mip 3: integer block sums exact, f32
    within 1 ulp; both times from CUDA events;
-4. K2, the Hann-peak contraction, against its plain version at T=64,
+4. K1's planar entry against the same plain version on one 1080p YUV 4:2:0
+   chunk, Y [64, 1080, 1920] at mip 3 and U, V [64, 540, 960] at mip 2 (one
+   launch for the pair): sums exact, the studio-swing scales within 1 ulp,
+   an odd crop at levels 1 and 7, the T=1 and two-call bit checks; times of
+   one YUV dispatch at T=64 and T=1 and their share of the bound;
+5. K2, the Hann-peak contraction, against its plain version at T=64,
    F=2047, NP=496, K=2 and 4, at T=8, K=4 (the chunked live path's) and K2'
    at T=1: within 1e-5; frames 0, T/2 and T-1 of the T=64 call equal to
    T=1 calls on the same inputs and two calls equal, bit for bit; both
    times;
-5. the offline path: ``Auralizer(config=AuralizerConfig(sample_rate=48000.0,
+6. the offline path: ``Auralizer(config=AuralizerConfig(sample_rate=48000.0,
    channels=2), device="cuda").sonify`` on 64 structured u8 1080p frames,
-   with the kernels' launch counts reset before and read after (K1, K2 and
-   K4, which runs once for the chunk of 64); then the
-   same clip cropped to 256x256 through the port on the card and on the CPU
-   (equal hue sequences, PCM within 1e-4);
-6. K3, the vision epilogue, against its plain version on the mips of
+   then on the same kind of clip as planar I420 YUV dicts (BT.601 studio
+   swing, ``tests/torch_frames.py``), with the kernels' launch counts reset
+   before and read after (K1 or its planar entry, at most 3 launches a
+   chunk, K2 and K4, which runs once for the chunk of 64); each clip
+   cropped to 256x256 through the port on the card and on the CPU (equal
+   hue sequences, PCM within 1e-4);
+7. K3, the vision epilogue, against its plain version on the mips of
    structured 1080p frames (135 x 240) at T=64, 8 and 1: counts exact,
    statistics within atol 1e-6, rtol 1e-5; the same bit checks as K2 (T=1
    against the batch, two calls); both times;
-7. K4, AGC + overlap-add, in both op orders (the frame order frame by
+8. K4, AGC + overlap-add, in both op orders (the frame order frame by
    frame, as frame_step calls it), mono and stereo, at T = 1, 8 and 64
    (and nfft 8192, and a hop not a multiple of 4), and on edge frames:
    within 1e-6 of its plain version on the card and on the CPU; a T=64
    chunk-order call equal to 64 chained T=1 calls and to a second call,
    bit for bit; one device kernel per call; both times at T=1 (frame
    order), 8 and 64 (chunk order);
-8. the live path: ``Auralizer(source=frames, config=..., device="cuda")
-   .run_until_exhausted()`` on 64 structured 1080p frames with
-   ``use_pallas`` and ``use_pallas_vision``, per frame and in chunks of 8,
-   the counts reset before each run and read after it (K1-K4 in both; K4
-   64 times per frame, 8 times in chunks); the pulled PCM equal to
-   ``run_offline`` on the card;
-   a 256x256 crop through the same configuration on the card and on the
-   CPU (equal hues, PCM within 1e-4);
-9. a profile of the live path under torch.profiler: device events per
-   frame by kind, host-to-device copies per dispatch, the device's busy
-   share of the wall clock;
-10. a real-time stream: 90 frames paced at 30 fps, its latency p50 / p99
+9. the live path: ``Auralizer(source=frames, config=..., device="cuda")
+   .run_until_exhausted()`` on 64 structured 1080p frames, RGB and then YUV
+   dicts, with ``use_pallas`` and ``use_pallas_vision``, per frame and in
+   chunks of 8, the counts reset before each run and read after it (K1 or
+   its planar entry, at most 3 a dispatch, and K2-K4 in both; K4 64 times
+   per frame, 8 times in chunks); the pulled PCM equal to ``run_offline``
+   on the card; a 256x256 crop through the same configuration on the card
+   and on the CPU (equal hues, PCM within 1e-4); YUV's ms/frame beside
+   RGB's;
+10. a profile of the live path under torch.profiler, RGB and YUV: device
+    events per frame by kind, host-to-device copies per dispatch, the
+    device's busy share of the wall clock;
+11. the config flags (quantize_mips, quantize_mips_int8,
+    linear_cell_grads=False, use_phase_lut, use_matmul_ema,
+    use_matmul_irfft): each offline on the 64 RGB frames beside the default
+    config, with its launch counts and a 32-frame 256x256 crop card vs CPU
+    (equal hues, PCM within 1e-4); the LUT's PCM equal to the default's bit
+    for bit; the dense irfft's time beside torch.fft.irfft's;
+12. the debug surface: ``sonify(debug=True)`` (PCM equal to debug=False,
+    the JAX package's shapes) and ``inspect_frame`` on a 1080p frame;
+13. a real-time stream: 90 frames paced at 30 fps, its latency p50 / p99
     and achieved fps.
 
 Each kernel's line gives two times: from CUDA events around a loop of calls
@@ -61,6 +77,7 @@ CPU: without a card the script fails.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import re
 import subprocess
@@ -193,56 +210,53 @@ def check_batch_independent(name: str, fn, inputs, T: int) -> None:
 
 
 def kernel_modules() -> dict:
+    """Each kernel's launch counter: (module, attribute)."""
     from vaudio_torch.ops import (audio_kernel, pool_kernel, spectrum_kernel,
                                   vision_kernel)
-    return {"mip_pool_u8": pool_kernel,
-            "hann_peak_weighted_sum": spectrum_kernel,
-            "vision_stats": vision_kernel,
-            "agc_overlap_add": audio_kernel}
+    return {"mip_pool_u8": (pool_kernel, "launches"),
+            "mip_pool_planes_u8": (pool_kernel, "planar_launches"),
+            "hann_peak_weighted_sum": (spectrum_kernel, "launches"),
+            "vision_stats": (vision_kernel, "launches"),
+            "agc_overlap_add": (audio_kernel, "launches")}
 
 
 def reset_counts() -> None:
-    for mod in kernel_modules().values():
-        mod.launches = 0
+    for mod, attr in kernel_modules().values():
+        setattr(mod, attr, 0)
 
 
 def read_counts() -> dict:
-    return {name: mod.launches for name, mod in kernel_modules().items()}
+    return {name: getattr(mod, attr)
+            for name, (mod, attr) in kernel_modules().items()}
 
 
-def structured_frames(seed: int, T: int, H: int, W: int,
-                      grid: int = 4) -> np.ndarray:
-    """u8 frames (T, H, W, 3): each of the 16 cells one saturated, bright
-    colour per frame whose hue lies mid-bin, so every cell passes the
-    histogram gate and the hues move.  Each colour is picked so that the
-    0.9/0.1 hue EMA never lands on an exact integer (where the truncation
-    would hang on the last ulp)."""
-    rng = np.random.default_rng(seed)
-    c = rng.integers(0, 256, (400000, 3)).astype(np.float64)
-    c = c[(c.max(1) >= 160) & (c.min(1) <= 60)]
-    r, g, b = (c / 255.0).T
-    num = 0.5 * ((r - g) + (r - b))
-    den = np.sqrt((r - g) ** 2 + (r - b) * (g - b))
-    th = np.arccos(np.clip(num / den, -1.0, 1.0))
-    x = np.where(b <= g, th, 2 * np.pi - th) / (2 * np.pi) * 359
-    keep = np.abs(x - np.floor(x) - 0.5) < 0.25
-    colors, bins = c[keep].astype(np.uint8), np.floor(x[keep]).astype(int)
+def clip_slice(clip, start: int, end: int):
+    """Frames start:end of an RGB clip or of a dict of YUV planes."""
+    if isinstance(clip, dict):
+        return {k: v[start:end] for k, v in clip.items()}
+    return clip[start:end]
 
-    hm, wm = H >> MIP, W >> MIP
-    row_of_x = (np.arange(wm) * grid) // wm
-    col_of_y = ((hm - 1 - np.arange(hm)) * grid) // hm
-    cell = row_of_x[None, :] * grid + col_of_y[:, None]
-    cell = np.repeat(np.repeat(cell, 1 << MIP, 0), 1 << MIP, 1)
-    prev = np.zeros(grid * grid, np.int64)
-    frames = np.zeros((T, H, W, 3), np.uint8)
-    for t in range(T):
-        pick = rng.integers(len(colors), size=grid * grid)
-        for k in range(grid * grid):
-            while (9 * prev[k] + bins[pick[k]]) % 10 == 0:
-                pick[k] = rng.integers(len(colors))
-            prev[k] = (9 * prev[k] + bins[pick[k]]) // 10
-        frames[t, :cell.shape[0], :cell.shape[1]] = colors[pick][cell]
-    return frames
+
+def crop256(clip):
+    """The top-left 256x256 of a clip (for YUV: Y 256^2, U and V 128^2)."""
+    if isinstance(clip, dict):
+        return {k: np.ascontiguousarray(v[:, :s, :s]) for k, v, s in
+                ((k, v, 256 if k == "y" else 128) for k, v in clip.items())}
+    return np.ascontiguousarray(clip[:, :256, :256])
+
+
+def as_source(clip):
+    """A clip as a live source: the RGB array, or a list of per-frame
+    dicts of YUV planes."""
+    if isinstance(clip, dict):
+        return [{k: v[i] for k, v in clip.items()}
+                for i in range(len(clip["y"]))]
+    return clip
+
+
+def pool_of(clip) -> str:
+    """The K1 entry a clip's frames go through."""
+    return "mip_pool_planes_u8" if isinstance(clip, dict) else "mip_pool_u8"
 
 
 def live_config():
@@ -310,6 +324,94 @@ def phase_k1(smi: str) -> dict:
     return e
 
 
+# The studio-swing scales of the YUV mips (vision/features.py).
+Y_SCALE, C_SCALE = 1.0 / 219.0, 1.0 / 224.0
+
+
+def k1_planar_check(name: str, planes, level: int, scale: float,
+                    second=None) -> float:
+    """Fail unless K1's planar entry gives the plain version's integer
+    block sums exactly (scale 4^l) and is within 1 ulp at ``scale``, the
+    pair form equal to two single calls; returns the max abs error."""
+    from vaudio_torch.ops import pool_kernel as pk
+    k = float(4 ** level)
+    err = 0.0
+    for x in (planes,) if second is None else (planes, second):
+        if not torch.equal(pk.mip_pool_planes(x, level, k),
+                           pk.mip_pool_plain(x, level, k)):
+            fail(f"{name}: integer block sums differ from the plain version")
+    got = pk.mip_pool_planes(planes, level, scale, second=second)
+    got = (got,) if second is None else got
+    for g, x in zip(got, (planes, second)):
+        ref = pk.mip_pool_plain(x, level, scale)
+        if g.shape != ref.shape:
+            fail(f"{name}: output shape {tuple(g.shape)}")
+        ulps = int((g.view(torch.int32) - ref.view(torch.int32)).abs().max())
+        if ulps > 1:
+            fail(f"{name}: differs from the plain version by {ulps} ulp")
+        if second is not None and not torch.equal(
+                g, pk.mip_pool_planes(x, level, scale)):
+            fail(f"{name}: the pair launch differs from a single call")
+        err = max(err, float((g - ref).abs().max()))
+    return err
+
+
+def phase_k1_planar(smi: str) -> list:
+    """K1's planar entry on a 1080p YUV 4:2:0 chunk: Y [64,1080,1920] at
+    mip 3 (one launch) and U, V [64,540,960] at mip 2 (one launch for the
+    pair), exact sums and within 1 ulp at the studio-swing scales; an odd
+    crop at levels 1 and 7; frames 0, T/2, T-1 against T=1 calls and two
+    calls, bit for bit.  Entries: one YUV dispatch (both launches) at T=64
+    (the offline chunk) and T=1 (the live per-frame step)."""
+    from vaudio_torch.ops import pool_kernel as pk
+    gen = torch.Generator(device="cuda").manual_seed(1)
+
+    def planes(*shape):
+        return torch.randint(0, 256, shape, generator=gen, device="cuda",
+                             dtype=torch.uint8)
+
+    T, H, W = CHUNK_T, 1080, 1920
+    y, u, v = planes(T, H, W), planes(T, H // 2, W // 2), \
+        planes(T, H // 2, W // 2)
+    err = max(k1_planar_check("K1 planar Y", y, MIP, Y_SCALE),
+              k1_planar_check("K1 planar U+V", u, MIP - 1, C_SCALE,
+                              second=v))
+    odd = y[:3, :1079, :1917].contiguous()
+    for level in (1, 7):
+        k1_planar_check(f"K1 planar odd crop level {level}", odd, level,
+                        Y_SCALE)
+    check_batch_independent(
+        "K1 planar Y", lambda x: (pk.mip_pool_planes(x, MIP, Y_SCALE),),
+        (y,), T)
+    check_batch_independent(
+        "K1 planar U+V", lambda a, b: pk.mip_pool_planes(
+            a, MIP - 1, C_SCALE, second=b), (u, v), T)
+    entries = []
+    for n, path in ((T, "offline_yuv"), (1, "live_yuv_frame")):
+        yn, un, vn = (x[:n].contiguous() for x in (y, u, v))
+        out_n = n * 3 * (H >> MIP) * (W >> MIP)
+        e = entry("mip_pool_planes_u8" + ("" if n == T else f"_t{n}"),
+                  "vaudio_torch/csrc/pool_kernel.cu",
+                  "vaudio/ops/pool_kernel.py:130", err,
+                  lambda: (pk.mip_pool_planes(yn, MIP, Y_SCALE),
+                           pk.mip_pool_planes(un, MIP - 1, C_SCALE,
+                                              second=vn)),
+                  lambda: (pk.mip_pool_plain(yn, MIP, Y_SCALE),
+                           pk.mip_pool_plain(un, MIP - 1, C_SCALE),
+                           pk.mip_pool_plain(vn, MIP - 1, C_SCALE)),
+                  nbytes=n * H * W * 3 // 2 + 4 * out_n,
+                  ops=n * H * W * 3 // 2 + 2 * out_n, path=path)
+        say(f"K1 mip_pool_planes u8 one YUV 4:2:0 dispatch T={n}: Y "
+            f"[{n},{H},{W}] mip {MIP} + U,V [{n},{H // 2},{W // 2}] mip "
+            f"{MIP - 1} (2 launches): sums exact, within 1 ulp, max_abs_err "
+            f"{err:.3e}; odd crop 3x1079x1917 at levels 1 and 7; frames 0, "
+            f"T/2, T-1 equal to T=1 calls and two calls equal, bit for bit; "
+            f"{timing(e)}; share of the bound "
+            f"{100 * e['bound_ms'] / e['device_ms']:.1f}% ({smi})")
+        entries.append(e)
+    return entries
+
+
 def phase_k2(smi: str) -> list:
     from vaudio_torch.config import AuralizerConfig
     from vaudio_torch.ops import spectrum_kernel as sk
@@ -361,61 +463,86 @@ def phase_k2(smi: str) -> list:
     return entries
 
 
-def phase_offline(frames: np.ndarray, smi: str) -> dict:
-    from vaudio_torch.api import Auralizer
+def offline_config():
     from vaudio_torch.config import AuralizerConfig
+    return AuralizerConfig(sample_rate=48000.0, channels=2)
+
+
+def crop_card_vs_cpu(label: str, clip, cfg, run=None, **kw) -> str:
+    """The 256x256 crop of ``clip`` through ``run`` (the chunked path by
+    default) on the card and on the CPU: fail unless the hue sequences are
+    equal, moved, and the PCM is within 1e-4; returns the summary."""
     from vaudio_torch.runtime.chunked import run_offline_batched
-    cfg = AuralizerConfig(sample_rate=48000.0, channels=2)
-    T = len(frames)
+    run = run or run_offline_batched
+    crop = crop256(clip)
+    a_gpu, _, d_gpu = run(crop, cfg, debug=True, device="cuda", **kw)
+    a_cpu, _, d_cpu = run(crop, cfg, debug=True, device="cpu", **kw)
+    hues_cpu = d_cpu["hues"]
+    if not torch.equal(d_gpu["hues"].cpu(), hues_cpu):
+        fail(f"{label} 256x256 crop: hue sequences differ card vs CPU")
+    if len(torch.unique(hues_cpu)) < 10:
+        fail(f"{label} 256x256 crop: the hues did not move")
+    err = float((a_gpu.cpu() - a_cpu).abs().max())
+    if not err <= 1e-4:
+        fail(f"{label} 256x256 crop: PCM card vs CPU differs by {err:.3e}")
+    return (f"256x256 crop card vs CPU: hues equal "
+            f"({len(torch.unique(hues_cpu))} distinct), PCM max diff "
+            f"{err:.3e}")
+
+
+def phase_offline(clip, smi: str):
+    """``Auralizer.sonify`` on the card, from host and from device frames,
+    with the launch counts of the host run; RGB frames or a YUV dict.
+    Returns (launches, ms/frame from host frames)."""
+    from vaudio_torch.api import Auralizer
+    cfg = offline_config()
+    yuv = isinstance(clip, dict)
+    what = "YUV 4:2:0 " if yuv else ""
+    T = len(clip["y"] if yuv else clip)
     aur = Auralizer(config=cfg, device="cuda")
-    aur.sonify(frames[:8])                          # warm-up (cuFFT plans)
-    torch.cuda.synchronize()
+    aur.sonify(clip)            # warm-up at the chunk's shape (cuFFT plans,
+    torch.cuda.synchronize()    # the caching allocator's blocks)
 
     reset_counts()
     t0 = time.perf_counter()
-    audio = aur.sonify(frames)                      # returns host numpy
+    audio = aur.sonify(clip)                        # returns host numpy
     wall = time.perf_counter() - t0
     launches = read_counts()
     if audio.shape != (T * cfg.hop_size, 2):
         fail(f"offline PCM shape {audio.shape}")
     if not np.all(np.isfinite(audio)) or not np.any(audio != 0):
         fail("offline PCM is not finite or all zero")
-    if min(launches["mip_pool_u8"], launches["hann_peak_weighted_sum"]) < 1:
+    pool, chunks = pool_of(clip), -(-T // CHUNK_T)
+    if min(launches[pool], launches["hann_peak_weighted_sum"]) < 1:
         fail(f"a kernel of the offline path never launched: {launches}")
-    if launches["agc_overlap_add"] != -(-T // CHUNK_T):
+    if launches["agc_overlap_add"] != chunks:
         fail(f"offline: K4 launched {launches['agc_overlap_add']} times for "
              f"{T} frames in chunks of {CHUNK_T}")
+    if yuv and (launches[pool] > 3 * chunks or launches["mip_pool_u8"]):
+        fail(f"offline YUV: more than 3 planar K1 launches a chunk, or the "
+             f"interleaved K1 launched: {launches}")
     t1 = time.perf_counter()
-    dev_frames = torch.as_tensor(frames, device="cuda")   # pageable copy
+    if yuv:                                         # pageable copies
+        dev_clip = {k: torch.as_tensor(v, device="cuda")
+                    for k, v in clip.items()}
+        nbytes = sum(v.nbytes for v in clip.values())
+    else:
+        dev_clip = torch.as_tensor(clip, device="cuda")
+        nbytes = clip.nbytes
     torch.cuda.synchronize()
     h2d = time.perf_counter() - t1
-    say(f"offline: host-to-device copy of {T} frames from pageable memory: "
-        f"{frames.nbytes / 1e6:.1f} MB in {1e3 * h2d:.2f} ms, "
-        f"{frames.nbytes / h2d / 1e9:.2f} GB/s ({smi})")
+    say(f"offline: host-to-device copy of {T} {what}frames from pageable "
+        f"memory: {nbytes / 1e6:.1f} MB in {1e3 * h2d:.2f} ms, "
+        f"{nbytes / h2d / 1e9:.2f} GB/s ({smi})")
     t1 = time.perf_counter()
-    aur.sonify(dev_frames)
+    aur.sonify(dev_clip)
     wall_dev = time.perf_counter() - t1
-    say(f"offline: Auralizer.sonify {T} frames 1080x1920 stereo 48 kHz "
-        f"chunk {CHUNK_T}: {1e3 * wall / T:.3f} ms/frame from host frames, "
-        f"{1e3 * wall_dev / T:.3f} ms/frame from device frames "
+    say(f"offline: Auralizer.sonify {T} {what}frames 1080x1920 stereo "
+        f"48 kHz chunk {CHUNK_T}: {1e3 * wall / T:.3f} ms/frame from host "
+        f"frames, {1e3 * wall_dev / T:.3f} ms/frame from device frames "
         f"({smi}); launches {launches}")
-
-    crop = np.ascontiguousarray(frames[:, :256, :256])
-    a_gpu, _, d_gpu = run_offline_batched(crop, cfg, debug=True,
-                                          device="cuda")
-    a_cpu, _, d_cpu = run_offline_batched(crop, cfg, debug=True,
-                                          device="cpu")
-    hues_gpu, hues_cpu = d_gpu["hues"].cpu(), d_cpu["hues"]
-    if not torch.equal(hues_gpu, hues_cpu):
-        fail("256x256 crop: hue sequences differ between card and CPU")
-    if len(torch.unique(hues_cpu)) < 10:
-        fail("256x256 crop: the hues did not move")
-    err = float((a_gpu.cpu() - a_cpu).abs().max())
-    if not err <= 1e-4:
-        fail(f"256x256 crop: PCM card vs CPU differs by {err:.3e}")
-    say(f"offline: 256x256 crop card vs CPU: hues equal "
-        f"({len(torch.unique(hues_cpu))} distinct), PCM max diff {err:.3e}")
-    return launches
+    say(f"offline: {what}" + crop_card_vs_cpu(f"offline {what}", clip, cfg))
+    return launches, 1e3 * wall / T
 
 
 def phase_k3(frames: np.ndarray, smi: str) -> list:
@@ -594,80 +721,180 @@ def phase_k4(smi: str) -> list:
     return entries
 
 
-def phase_live(frames: np.ndarray, smi: str) -> dict:
+def phase_live(frames, smi: str):
+    """The live stream per frame and in chunks on RGB frames or a YUV dict:
+    launch counts, PCM equal to the offline run on the card, the 256x256
+    crop card vs CPU.  Returns (counts by path, ms/frame by path)."""
     from vaudio_torch.api import Auralizer
     from vaudio_torch.runtime import chunked, step
     cfg = live_config()
-    clip = frames[:LIVE_T]
+    yuv = isinstance(frames, dict)
+    what = "YUV 4:2:0 " if yuv else ""
+    clip = clip_slice(frames, 0, LIVE_T)
     for chunk in (1, LIVE_CHUNK):                   # warm-up
-        Auralizer(source=frames[:LIVE_CHUNK], config=cfg, device="cuda",
+        Auralizer(source=as_source(clip_slice(frames, 0, LIVE_CHUNK)),
+                  config=cfg, device="cuda",
                   chunk_frames=chunk).run_until_exhausted(timeout=300)
     torch.cuda.synchronize()
-    counts = {}
+    counts, walls = {}, {}
+    pool = pool_of(frames)
     for chunk, path in ((1, "live_frame"), (LIVE_CHUNK, "live_chunk")):
-        aur = Auralizer(source=clip, config=cfg, device="cuda",
+        path = path.replace("live", "live_yuv") if yuv else path
+        aur = Auralizer(source=as_source(clip), config=cfg, device="cuda",
                         chunk_frames=chunk)
         reset_counts()
         t0 = time.perf_counter()
         aur.run_until_exhausted(timeout=300)
         wall = time.perf_counter() - t0
         counts[path] = launches = read_counts()
+        walls[path] = 1e3 * wall / LIVE_T
         m = aur.metrics
         got = aur.pull(LIVE_T * cfg.hop_size * cfg.channels)
-        need = ["mip_pool_u8", "hann_peak_weighted_sum", "vision_stats",
+        need = [pool, "hann_peak_weighted_sum", "vision_stats",
                 "agc_overlap_add"]
         if min(launches[k] for k in need) < 1:
-            fail(f"live chunk_frames={chunk}: a kernel of the path never "
-                 f"launched: {launches}")
+            fail(f"live {what}chunk_frames={chunk}: a kernel of the path "
+                 f"never launched: {launches}")
         if launches["agc_overlap_add"] != LIVE_T // chunk:
-            fail(f"live chunk_frames={chunk}: K4 launched "
+            fail(f"live {what}chunk_frames={chunk}: K4 launched "
                  f"{launches['agc_overlap_add']} times in {LIVE_T} frames")
+        if yuv and (launches[pool] > 3 * m["dispatches"]
+                    or launches["mip_pool_u8"]):
+            fail(f"live YUV chunk_frames={chunk}: more than 3 planar K1 "
+                 f"launches a dispatch, or the interleaved K1 launched: "
+                 f"{launches}, {m['dispatches']} dispatches")
         if m["frames_processed"] != LIVE_T or m["dropped_frames"]:
-            fail(f"live chunk_frames={chunk}: {m}")
+            fail(f"live {what}chunk_frames={chunk}: {m}")
         # The stream dispatches whole chunks and single-steps the rest.
         main = 0 if chunk == 1 else LIVE_T - LIVE_T % chunk
         ref, carry = torch.zeros((0, cfg.channels), device="cuda"), None
         if main:
             ref, carry, _ = chunked.run_offline_batched(
-                clip[:main], cfg, chunk=chunk, device="cuda")
+                clip_slice(clip, 0, main), cfg, chunk=chunk, device="cuda")
         if main < LIVE_T:
-            rest, _, _ = step.run_offline(clip[main:], cfg, carry=carry,
-                                          device="cuda")
+            rest, _, _ = step.run_offline(clip_slice(clip, main, LIVE_T),
+                                          cfg, carry=carry, device="cuda")
             ref = torch.cat([ref, rest])
         if not np.array_equal(got, ref.cpu().numpy().reshape(-1)):
-            fail(f"live chunk_frames={chunk}: the pulled PCM differs from "
-                 f"the offline run on the card by "
+            fail(f"live {what}chunk_frames={chunk}: the pulled PCM differs "
+                 f"from the offline run on the card by "
                  f"{np.abs(got - ref.cpu().numpy().reshape(-1)).max():.3e}")
         if not np.any(got != 0):
-            fail(f"live chunk_frames={chunk}: silent")
-        say(f"live: Auralizer(...).run_until_exhausted {LIVE_T} frames "
-            f"1080x1920 stereo 48 kHz chunk_frames={chunk}: "
-            f"{1e3 * wall / LIVE_T:.3f} ms/frame, latency p50 "
+            fail(f"live {what}chunk_frames={chunk}: silent")
+        say(f"live: Auralizer(...).run_until_exhausted {LIVE_T} {what}"
+            f"frames 1080x1920 stereo 48 kHz chunk_frames={chunk}: "
+            f"{walls[path]:.3f} ms/frame, latency p50 "
             f"{m['latency_p50_ms']:.3f} ms p99 {m['latency_p99_ms']:.3f} ms "
             f"(unpaced, pipeline depth 4); PCM equal to the offline run on "
-            f"the card; launches {launches} ({smi})")
+            f"the card; launches {launches} in {m['dispatches']} dispatches "
+            f"({smi})")
 
-    crop = np.ascontiguousarray(clip[:, :256, :256])
     runs = (("per frame", step.run_offline, {}),
             ("chunked", chunked.run_offline_batched, {"chunk": LIVE_CHUNK}))
     for label, run, kw in runs:
-        a_gpu, _, d_gpu = run(crop, cfg, debug=True, device="cuda", **kw)
-        a_cpu, _, d_cpu = run(crop, cfg, debug=True, device="cpu", **kw)
-        if not torch.equal(d_gpu["hues"].cpu(), d_cpu["hues"]):
-            fail(f"live 256x256 crop {label}: hues differ card vs CPU")
-        err = float((a_gpu.cpu() - a_cpu).abs().max())
-        if not err <= 1e-4:
-            fail(f"live 256x256 crop {label}: PCM card vs CPU {err:.3e}")
-        say(f"live: 256x256 crop {label} card vs CPU: hues equal "
-            f"({len(torch.unique(d_cpu['hues']))} distinct), PCM max diff "
-            f"{err:.3e}")
-    return counts
+        say(f"live: {what}{label} " + crop_card_vs_cpu(
+            f"live {what}{label}", clip, cfg, run, **kw))
+    return counts, walls
+
+
+# The AuralizerConfig flags outside the default path (quantize_mips_int8
+# acts only with quantize_mips).
+FLAGS = (("quantize_mips", dict(quantize_mips=True)),
+         ("quantize_mips_int8", dict(quantize_mips=True,
+                                     quantize_mips_int8=True)),
+         ("linear_cell_grads=False", dict(linear_cell_grads=False)),
+         ("use_phase_lut", dict(use_phase_lut=True)),
+         ("use_matmul_ema", dict(use_matmul_ema=True)),
+         ("use_matmul_irfft", dict(use_matmul_irfft=True)))
+FLAG_CROP_T = 32                 # frames of each flag's 256x256 crop
+
+
+def phase_flags(frames: np.ndarray, smi: str) -> None:
+    """Each flag offline on the card (``Auralizer.sonify``, chunk 64)
+    beside the default config in the same call, its launch counts, and
+    its 256x256 crop card vs CPU; the LUT's PCM bit-equal to the default's
+    (cumsum phases); the dense irfft's time beside torch.fft.irfft's."""
+    from vaudio_torch.api import Auralizer
+    from vaudio_torch.dsp.core import irfft_from_half, irfft_from_half_dense
+    base = offline_config()
+    T = len(frames)
+    pcm = {}
+    for name, flags in (("default", {}),) + FLAGS:
+        cfg = dataclasses.replace(base, **flags)
+        aur = Auralizer(config=cfg, device="cuda")
+        aur.sonify(frames)                          # warm-up
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        pcm[name] = aur.sonify(frames)
+        ms = 1e3 * (time.perf_counter() - t0) / T
+        launches = read_counts()
+        if (pcm[name].shape != (T * cfg.hop_size, 2)
+                or not np.all(np.isfinite(pcm[name]))
+                or not np.any(pcm[name] != 0)):
+            fail(f"flag {name}: PCM not finite, silent or of shape "
+                 f"{pcm[name].shape}")
+        if min(launches["hann_peak_weighted_sum"],
+               launches["agc_overlap_add"]) < 1:
+            fail(f"flag {name}: a kernel of the path never launched: "
+                 f"{launches}")
+        crop = crop_card_vs_cpu(f"flag {name}", frames[:FLAG_CROP_T], cfg)
+        say(f"flags: {name}: Auralizer.sonify {T} frames 1080x1920 stereo "
+            f"48 kHz chunk {CHUNK_T}: {ms:.3f} ms/frame from host frames; "
+            f"launches {launches}; {FLAG_CROP_T}-frame {crop} ({smi})")
+    if not np.array_equal(pcm["use_phase_lut"], pcm["default"]):
+        fail("use_phase_lut: PCM differs from the default config's on the "
+             "card (cumsum phases: the gather must equal the direct path)")
+    say("flags: use_phase_lut PCM equal to the default config's, bit for "
+        "bit, on the card")
+    spec = torch.randn((CHUNK_T, 2, base.num_bins, 2), device="cuda",
+                       generator=torch.Generator(device="cuda").manual_seed(2))
+    dense, fft = irfft_from_half_dense(spec), irfft_from_half(spec)
+    err = float((dense - fft).abs().max() / fft.abs().max())
+    if not err <= 1e-5:
+        fail(f"dense irfft differs from torch.fft.irfft by {err:.3e} of the "
+             f"peak")
+    say(f"flags: irfft of [{CHUNK_T},2,{base.num_bins}] -> 4096: dense f32 "
+        f"products {cuda_ms(lambda: irfft_from_half_dense(spec)):.4f} ms "
+        f"({device_ms(lambda: irfft_from_half_dense(spec)):.4f} on the "
+        f"device), torch.fft.irfft {cuda_ms(lambda: irfft_from_half(spec)):.4f}"
+        f" ms ({device_ms(lambda: irfft_from_half(spec)):.4f}); max diff "
+        f"{err:.2e} of the peak ({smi})")
+
+
+def phase_debug(frames: np.ndarray, smi: str) -> None:
+    """sonify(debug=True) on the card: PCM bit-equal to debug=False, the
+    JAX package's shapes; inspect_frame on one 1080p frame: the JAX keys,
+    the rotated (wm, hm, 4) maps, finite."""
+    from vaudio_torch.api import Auralizer
+    cfg = offline_config()
+    T = len(frames)
+    aur = Auralizer(config=cfg, device="cuda")
+    pcm, dbg = aur.sonify(frames, debug=True)
+    if not np.array_equal(pcm, aur.sonify(frames)):
+        fail("sonify(debug=True): PCM differs from debug=False")
+    shapes = {k: v.shape for k, v in dbg.items()}
+    want = {"hues": (T, 16), "grads": (T, 16, 4),
+            "spectrum": (T, 2, cfg.num_bins, 2)}
+    if shapes != want:
+        fail(f"sonify(debug=True) shapes {shapes}, expected {want}")
+    maps = aur.inspect_frame(frames[0])
+    keys = {"hues", "grads", "histogram", "hue_map", "saturation_map",
+            "intensity_map", "mip_hsi"}
+    hm, wm = 1080 >> MIP, 1920 >> MIP
+    if (set(maps) != keys or maps["hue_map"].shape != (wm, hm, 4)
+            or maps["mip_hsi"].shape != (hm, wm, 3)
+            or not all(np.all(np.isfinite(v)) for v in maps.values())):
+        fail(f"inspect_frame: {({k: v.shape for k, v in maps.items()})}")
+    say(f"debug: sonify(debug=True) {T} frames: PCM equal to debug=False "
+        f"bit for bit, shapes {shapes}; inspect_frame 1080x1920: "
+        f"{({k: v.shape for k, v in maps.items()})} ({smi})")
 
 
 def kind_of(name: str) -> str:
     """The kind of a device event, for the profile's table."""
-    for kernel in ("mip_pool_u8", "hann_peak_weighted_sum", "vision_stats",
-                   "agc_overlap_add"):
+    for kernel in ("mip_pool_u8", "mip_pool_planes", "hann_peak_weighted_sum",
+                   "vision_stats", "agc_overlap_add"):
         if kernel in name:
             return kernel
     if name.startswith("Memcpy"):
@@ -681,20 +908,23 @@ def kind_of(name: str) -> str:
     return "other"
 
 
-def phase_profile(frames: np.ndarray, smi: str) -> None:
-    """The live path under torch.profiler, per frame and in chunks: device
-    events per frame by kind, host-to-device copies per dispatch, and the
-    device's busy share of the run's wall clock."""
+def phase_profile(frames, smi: str) -> None:
+    """The live path under torch.profiler, per frame and in chunks, on RGB
+    frames or a YUV dict: device events per frame by kind, host-to-device
+    copies per dispatch, and the device's busy share of the run's wall
+    clock."""
     from torch.profiler import ProfilerActivity, profile
 
     from vaudio_torch.api import Auralizer
     cfg = live_config()
     T = 16
+    what = "YUV 4:2:0 " if isinstance(frames, dict) else ""
+    source = as_source(clip_slice(frames, 0, T))
     for chunk in (1, LIVE_CHUNK):
-        aur = Auralizer(source=frames[:T], config=cfg, device="cuda",
+        aur = Auralizer(source=source, config=cfg, device="cuda",
                         chunk_frames=chunk)
         aur.run_until_exhausted(timeout=300)        # warm-up
-        aur = Auralizer(source=frames[:T], config=cfg, device="cuda",
+        aur = Auralizer(source=source, config=cfg, device="cuda",
                         chunk_frames=chunk)
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -710,15 +940,15 @@ def phase_profile(frames: np.ndarray, smi: str) -> None:
             rows[kind_of(e.name)] = (n + 1, us + e.time_range.elapsed_us())
         busy_ms = sum(us for _, us in rows.values()) / 1e3
         if busy_ms <= 0:
-            say(f"profile: live chunk_frames={chunk}: torch.profiler "
+            say(f"profile: live {what}chunk_frames={chunk}: torch.profiler "
                 f"recorded no device events: not measured")
             continue
         dispatches = aur.metrics["dispatches"]
         table = ", ".join(f"{k} {n / T:.2f}/frame {us / 1e3 / T:.4f} ms"
                           for k, (n, us) in sorted(rows.items(),
                                                    key=lambda r: -r[1][1]))
-        say(f"profile: live chunk_frames={chunk}, {T} frames 1080x1920 "
-            f"stereo: wall {wall_ms / T:.3f} ms/frame, device busy "
+        say(f"profile: live {what}chunk_frames={chunk}, {T} frames "
+            f"1080x1920 stereo: wall {wall_ms / T:.3f} ms/frame, device busy "
             f"{busy_ms / T:.4f} ms/frame ({100 * busy_ms / wall_ms:.1f}% of "
             f"the wall, idle {100 - 100 * busy_ms / wall_ms:.1f}%), "
             f"{sum(n for n, _ in rows.values()) / T:.1f} device events/frame, "
@@ -764,17 +994,34 @@ def main() -> None:
              "only on a GPU")
     import vaudio_torch  # noqa: F401  (fails outside the repository)
     sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
+    from torch_frames import structured_frames, structured_yuv_frames
     smi = phase_env()
     phase_build(smi)
     t0 = time.perf_counter()
     frames = structured_frames(0, REALTIME_T, 1080, 1920)
     say(f"frames: {REALTIME_T} structured u8 frames 1080x1920 made in "
         f"{time.perf_counter() - t0:.1f} s on the host ({smi})")
-    kernels = [phase_k1(smi), *phase_k2(smi)]
-    counts = {"offline": phase_offline(frames[:CHUNK_T], smi)}
+    t0 = time.perf_counter()
+    yuv = structured_yuv_frames(0, LIVE_T, 1080, 1920)
+    say(f"frames: {LIVE_T} structured YUV 4:2:0 frames 1080x1920 (I420, "
+        f"BT.601 studio swing) made in {time.perf_counter() - t0:.1f} s on "
+        f"the host ({smi})")
+    kernels = [phase_k1(smi), *phase_k1_planar(smi), *phase_k2(smi)]
+    counts, ms = {}, {}
+    counts["offline"], ms["offline"] = phase_offline(frames[:CHUNK_T], smi)
+    counts["offline_yuv"], ms["offline_yuv"] = phase_offline(yuv, smi)
     kernels += [*phase_k3(frames, smi), *phase_k4(smi)]
-    counts.update(phase_live(frames, smi))
+    for clip in (frames, yuv):
+        c, w = phase_live(clip, smi)
+        counts.update(c)
+        ms.update(w)
+    say("YUV 4:2:0 against RGB, ms/frame in this call: "
+        + ", ".join(f"{p} {ms[p.replace('_yuv', '')]:.3f} -> {ms[p]:.3f}"
+                    for p in ms if "_yuv" in p) + f" ({smi})")
     phase_profile(frames, smi)
+    phase_profile(yuv, smi)
+    phase_flags(frames[:CHUNK_T], smi)
+    phase_debug(frames[:CHUNK_T], smi)
     phase_realtime(frames, smi)
     for k in kernels:
         base = re.sub(r"_t\d+$", "", k["name"])

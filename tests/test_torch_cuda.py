@@ -12,13 +12,15 @@ import pytest
 import torch
 
 from torch_frames import (k4_args, k4_chained, k4_edge_frames, k4_forms,
-                          structured_frames)
+                          structured_frames, structured_yuv_frames)
 from vaudio_torch.config import AuralizerConfig
 from vaudio_torch.api import Auralizer
 from vaudio_torch.dsp.core import hann_sinc_peak_fast, hann_window_norm
 from vaudio_torch.ops import (audio_kernel, pool_kernel, spectrum_kernel,
                               vision_kernel)
 from vaudio_torch.runtime import chunked, step
+from vaudio_torch.synth import spectrum
+from vaudio_torch.vision import features
 
 pytestmark = pytest.mark.cuda
 
@@ -465,3 +467,181 @@ def test_k4_chunk_wrapper_checks_inputs(dev):
         audio_kernel.agc_overlap_add_chunk(
             torch.zeros((1, 3, 4096), device=dev),
             torch.zeros((3, 4096), device=dev), z[0], one, one, one)
+
+
+# ---------------------------------------------------------------------------
+# K1's planar entry, the YUV path and the config flags on the card
+# ---------------------------------------------------------------------------
+
+def ulps(a, b) -> int:
+    return int((a.view(torch.int32) - b.view(torch.int32)).abs().max())
+
+
+PLANAR_CASES = ([(64, 1080, 1920, 3), (64, 540, 960, 2), (1, 1080, 1920, 3),
+                 (3, 61, 45, 2), (2, 37, 129, 1)]
+                + [(2, 257, 389, level) for level in range(1, 8)])
+
+
+@pytest.mark.parametrize("N,H,W,level", PLANAR_CASES)
+def test_k1_planar_matches_plain(dev, gen, N, H, W, level):
+    """mip_pool_planes on u8 (N, H, W): the integer block sums exact
+    (scale 4^l); the studio-swing scales 1/219 and 1/224 within 1 ulp of
+    the plain version; a pair of batches in one launch equal to two single
+    calls."""
+    a, b = (torch.as_tensor(gen.integers(0, 256, (N, H, W), dtype=np.uint8),
+                            device=dev) for _ in range(2))
+    k = float(4 ** level)
+    assert torch.equal(pool_kernel.mip_pool_planes(a, level, k),
+                       pool_kernel.mip_pool_plain(a, level, k))
+    for scale in (1 / 219.0, 1 / 224.0):
+        got = pool_kernel.mip_pool_planes(a, level, scale)
+        assert got.shape == (N, H >> level, W >> level)
+        assert ulps(got, pool_kernel.mip_pool_plain(a, level, scale)) <= 1
+        pa, pb = pool_kernel.mip_pool_planes(a, level, scale, second=b)
+        assert torch.equal(pa, got)
+        assert torch.equal(pb, pool_kernel.mip_pool_planes(b, level, scale))
+
+
+def test_k1_planar_is_batch_independent(dev, gen):
+    """Planes 0, N/2 and N-1 of a 64-plane call equal single-plane calls,
+    and two calls equal, bit for bit."""
+    y = torch.as_tensor(gen.integers(0, 256, (64, 1080, 1920),
+                                     dtype=np.uint8), device=dev)
+    full = pool_kernel.mip_pool_planes(y, 3, 1 / 219.0)
+    assert torch.equal(full, pool_kernel.mip_pool_planes(y, 3, 1 / 219.0))
+    for j in (0, 32, 63):
+        assert torch.equal(full[j:j + 1], pool_kernel.mip_pool_planes(
+            y[j:j + 1].contiguous(), 3, 1 / 219.0))
+
+
+def test_k1_planar_counts_checks_and_never_runs_plain(dev, monkeypatch):
+    """One count per launch (a pair is one launch); bad inputs raise; on a
+    CUDA tensor neither the wrapper nor mip_downsample_planes reaches the
+    plain version."""
+    monkeypatch.setattr(pool_kernel, "mip_pool_plain", None)
+    y = torch.zeros((2, 64, 64), dtype=torch.uint8, device=dev)
+    before = pool_kernel.planar_launches
+    pool_kernel.mip_pool_planes(y, 3)
+    pool_kernel.mip_pool_planes(y, 2, second=y)
+    features.mip_downsample_planes(y, 1, scale=1 / 255.0)
+    assert pool_kernel.planar_launches - before == 3
+    for bad in (y.float(), y[:, :, ::2], y[0, 0]):
+        with pytest.raises(ValueError, match="contiguous"):
+            pool_kernel.mip_pool_planes(bad, 1)
+    with pytest.raises(ValueError, match="does not fit"):
+        pool_kernel.mip_pool_planes(y, 7)
+
+
+def yuv_head(yuv, start, end):
+    return {k: v[start:end] for k, v in yuv.items()}
+
+
+@pytest.mark.parametrize("channels", [1, 2])
+def test_yuv_path_on_the_card_matches_the_cpu(dev, channels):
+    """A 256x256 YUV clip (Y 256^2, U and V 128^2), chunked in chunks of 8
+    and per frame, on the card against the CPU: hues equal, PCM within
+    1e-4; two planar K1 launches a dispatch (Y, then U and V together)."""
+    cfg = AuralizerConfig(channels=channels, use_pallas_vision=True)
+    yuv = structured_yuv_frames(20, 12, 256, 256)
+    before = pool_kernel.planar_launches
+    a_gpu, _, d_gpu = chunked.run_offline_batched(yuv, cfg, chunk=8,
+                                                  debug=True, device=dev)
+    assert pool_kernel.planar_launches - before == 2 * 2
+    a_cpu, _, d_cpu = chunked.run_offline_batched(yuv, cfg, chunk=8,
+                                                  debug=True, device="cpu")
+    assert torch.equal(d_gpu["hues"].cpu(), d_cpu["hues"])
+    assert float((a_gpu.cpu() - a_cpu).abs().max()) <= 1e-4
+    head = yuv_head(yuv, 0, 4)
+    before = pool_kernel.planar_launches
+    a_gpu, _, d_gpu = step.run_offline(head, cfg, debug=True, device=dev)
+    assert pool_kernel.planar_launches - before == 2 * 4
+    a_cpu, _, d_cpu = step.run_offline(head, cfg, debug=True, device="cpu")
+    assert torch.equal(d_gpu["hues"].cpu(), d_cpu["hues"])
+    assert float((a_gpu.cpu() - a_cpu).abs().max()) <= 1e-4
+
+
+@pytest.mark.parametrize("chunk_frames", [1, 4])
+def test_live_yuv_stream_on_the_card_equals_run_offline(dev, chunk_frames):
+    """YUV dict frames streamed on the card with K3 and K4 on: the pulled
+    PCM equals the offline run on the card; the planar K1 launches twice a
+    dispatch."""
+    cfg = AuralizerConfig(channels=2, use_pallas=True,
+                          use_pallas_vision=True, ring_buffer_frames=64)
+    yuv = structured_yuv_frames(21, 10, 192, 256)
+    frames = [{k: v[i] for k, v in yuv.items()} for i in range(10)]
+    before = pool_kernel.planar_launches
+    aur = Auralizer(source=frames, config=cfg, device=dev,
+                    chunk_frames=chunk_frames)
+    aur.run_until_exhausted(timeout=60)
+    assert pool_kernel.planar_launches - before == \
+        2 * aur.metrics["dispatches"]
+    got = aur.pull(10 * 2048 * 2)
+    if chunk_frames == 1:
+        ref, _, _ = step.run_offline(yuv, cfg, device=dev)
+    else:
+        head, carry, _ = chunked.run_offline_batched(yuv_head(yuv, 0, 8),
+                                                     cfg, chunk=4,
+                                                     device=dev)
+        tail, _, _ = step.run_offline(yuv_head(yuv, 8, 10), cfg,
+                                      carry=carry, device=dev)
+        ref = torch.cat([head, tail])
+    np.testing.assert_array_equal(got, ref.cpu().numpy().reshape(-1))
+
+
+FLAG_CONFIGS = [dict(quantize_mips=True),
+                dict(quantize_mips=True, quantize_mips_int8=True),
+                dict(linear_cell_grads=False),
+                dict(use_phase_lut=True),
+                dict(use_phase_lut=True, use_cumsum_phases=False),
+                dict(use_matmul_ema=True), dict(use_matmul_irfft=True)]
+
+
+@pytest.mark.parametrize("flags", FLAG_CONFIGS)
+def test_flag_paths_on_the_card_match_the_cpu(dev, flags):
+    """Each flag of the slice on a 256x256 clip, chunked and per frame, on
+    the card against the CPU: hues equal, PCM within 1e-4."""
+    cfg = AuralizerConfig(channels=2, use_pallas_vision=True, **flags)
+    frames = structured_frames(22, 12, 256, 256)
+    for run, clip, kw in ((chunked.run_offline_batched, frames,
+                           {"chunk": 8}),
+                          (step.run_offline, frames[:4], {})):
+        a_gpu, _, d_gpu = run(clip, cfg, debug=True, device=dev, **kw)
+        a_cpu, _, d_cpu = run(clip, cfg, debug=True, device="cpu", **kw)
+        assert torch.equal(d_gpu["hues"].cpu(), d_cpu["hues"])
+        assert float((a_gpu.cpu() - a_cpu).abs().max()) <= 1e-4
+
+
+def test_lut_equals_the_direct_path_on_the_card(dev):
+    """The advance table, built on the card with the direct path's ops,
+    gathers to the direct advance bit for bit on every hue; the chunked
+    prefix-sum run with the LUT equals the default run bit for bit."""
+    cfg = AuralizerConfig()
+    lut = AuralizerConfig(use_phase_lut=True)
+    consts = spectrum.SynthConstants.create(cfg, dev)
+    hues = (torch.arange(368, dtype=torch.int32, device=dev) % 360
+            ).reshape(23, 16)
+    assert torch.equal(spectrum.phase_advance(hues, lut, consts),
+                       spectrum.phase_advance(hues, cfg, consts))
+    frames = structured_frames(23, 12, 192, 256)
+    a, c, _ = chunked.run_offline_batched(frames, cfg, chunk=8, device=dev)
+    a_lut, c_lut, _ = chunked.run_offline_batched(frames, lut, chunk=8,
+                                                  device=dev)
+    assert torch.equal(a_lut, a) and torch.equal(c_lut.phases, c.phases)
+
+
+def test_debug_surface_on_the_card(dev):
+    """sonify(debug=True) on the card: PCM equal to debug=False, the JAX
+    shapes; inspect_frame's maps on the card within 1e-6 of the CPU's."""
+    cfg = AuralizerConfig(channels=2)
+    frames = structured_frames(24, 8, 192, 256)
+    aur = Auralizer(config=cfg, device=dev)
+    pcm, dbg = aur.sonify(frames, debug=True)
+    np.testing.assert_array_equal(pcm, aur.sonify(frames))
+    assert dbg["hues"].shape == (8, 16) and dbg["grads"].shape == (8, 16, 4)
+    assert dbg["spectrum"].shape == (8, 2, 2047, 2)
+    got = aur.inspect_frame(frames[0])
+    ref = Auralizer(config=cfg, device="cpu").inspect_frame(frames[0])
+    assert set(got) == set(ref)
+    np.testing.assert_array_equal(got["hues"], ref["hues"])
+    for name in ref:
+        np.testing.assert_allclose(got[name], ref[name], atol=1e-6)

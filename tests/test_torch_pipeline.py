@@ -4,7 +4,6 @@ JAX package, on structured u8 clips (tests/torch_frames.py), with and
 without the kernel paths K3 (use_pallas_vision) and K4 (use_pallas,
 use_pallas_audio), plus the carry conversions and the port's guards."""
 
-import dataclasses
 import subprocess
 import sys
 import textwrap
@@ -233,8 +232,9 @@ def test_jax_carry_resumes_in_the_port():
 
 def test_import_and_slice_leave_jax_out():
     """vaudio_torch imports neither jax nor the JAX package: checked in a
-    fresh interpreter after the offline slice and a short stream with both
-    kernel paths on, with TF32 off."""
+    fresh interpreter after the offline slice (RGB, a planar YUV dict and a
+    debug run) and a short stream with both kernel paths on, with TF32
+    off."""
     code = textwrap.dedent("""
         import sys
         import numpy as np
@@ -247,6 +247,14 @@ def test_import_and_slice_leave_jax_out():
                               use_pallas_vision=True)
         audio = Auralizer(config=cfg, device="cpu").sonify(frames)
         assert audio.shape == (8 * 2048, 2)
+        yuv = {"y": np.full((8, 32, 32), 120, np.uint8),
+               "u": np.full((8, 16, 16), 90, np.uint8),
+               "v": np.full((8, 16, 16), 200, np.uint8)}
+        assert Auralizer(config=cfg, device="cpu").sonify(yuv).shape == (
+            8 * 2048, 2)
+        pcm, dbg = Auralizer(config=cfg, device="cpu").sonify(frames,
+                                                              debug=True)
+        assert dbg["spectrum"].shape == (8, 2, 2047, 2)
         aur = Auralizer(source=frames[:4], config=cfg, device="cpu")
         aur.run_until_exhausted(timeout=60)
         assert aur.metrics["frames_processed"] == 4
@@ -268,32 +276,55 @@ def test_tf32_is_off_after_import():
     assert torch.backends.cudnn.allow_tf32 is False
 
 
-@pytest.mark.parametrize("flag", [
-    "use_phase_lut", "use_matmul_irfft", "use_matmul_ema", "quantize_mips",
-    "quantize_mips_int8",
-])
+# The flags the port once refused, each as the config that runs it
+# (quantize_mips_int8 acts only with quantize_mips, as in the JAX package).
+FLAG_CONFIGS = {
+    "use_phase_lut": dict(use_phase_lut=True),
+    "use_matmul_irfft": dict(use_matmul_irfft=True),
+    "use_matmul_ema": dict(use_matmul_ema=True),
+    "quantize_mips": dict(quantize_mips=True),
+    "quantize_mips_int8": dict(quantize_mips=True, quantize_mips_int8=True),
+    "linear_cell_grads": dict(linear_cell_grads=False),
+}
+
+
+@pytest.mark.parametrize("flag", list(FLAG_CONFIGS))
 def test_flags_outside_the_slice_raise(flag):
-    cfg = dataclasses.replace(AuralizerConfig(), **{flag: True})
-    frames = np.zeros((2, 32, 32, 3), np.uint8)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Auralizer(config=cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        chunked.run_offline_batched(frames, cfg, device="cpu")
+    """Each flag once outside the slice now runs, and is held to the JAX
+    package: the chunked path (T=12 in chunks of 8, stereo) and the
+    per-frame path (T=4) give equal hues, phases bit for bit and PCM within
+    2e-5."""
+    cfg = AuralizerConfig(channels=2, **FLAG_CONFIGS[flag])
+    Auralizer(config=cfg, device="cpu")
+    frames = structured_frames(17, 12, 192, 256)
+    for ref, got in (
+            (jax_chunked.run_offline_batched(frames, cfg, dict(PARAMS),
+                                             chunk=8, debug=True),
+             chunked.run_offline_batched(frames, cfg, dict(PARAMS), chunk=8,
+                                         debug=True, device="cpu")),
+            (jax_step.run_offline(frames[:4], cfg, dict(PARAMS), debug=True),
+             step.run_offline(frames[:4], cfg, dict(PARAMS), debug=True,
+                              device="cpu"))):
+        (a_ref, c_ref, d_ref), (a_got, c_got, d_got) = ref, got
+        np.testing.assert_array_equal(d_got["hues"].numpy(),
+                                      np.asarray(d_ref["hues"]))
+        np.testing.assert_array_equal(c_got.phases.numpy(),
+                                      np.asarray(c_ref.phases))
+        np.testing.assert_allclose(a_got.numpy(), np.asarray(a_ref),
+                                   atol=PCM_ATOL)
 
 
 def test_inputs_outside_the_slice_raise():
+    """What stays unported raises naming its ROADMAP item (the control
+    channel, live debug, the server, the orthomodes model); an unknown
+    sonify mode is a ValueError."""
     cfg = AuralizerConfig()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Auralizer(config=dataclasses.replace(cfg, linear_cell_grads=False))
-    yuv = {"y": np.zeros((2, 32, 32), np.uint8),
-           "u": np.zeros((2, 16, 16), np.uint8),
-           "v": np.zeros((2, 16, 16), np.uint8)}
-    with pytest.raises(NotImplementedError, match="YUV"):
-        Auralizer(config=cfg, device="cpu").sonify(yuv)
-    from vaudio_torch.vision import features
-    with pytest.raises(NotImplementedError, match="debug"):
-        features.frame_stats(torch.zeros((1, 32, 32, 3)), cfg,
-                             compute_debug_maps=True)
+    aur = Auralizer(config=cfg, device="cpu")
+    for call in (lambda: aur.attach_control("ctl.fifo"),
+                 lambda: aur.live_debug("out"), lambda: aur.serve(),
+                 lambda: Auralizer(config=cfg, model="orthomodes",
+                                   device="cpu")):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            call()
     with pytest.raises(ValueError, match="sonify mode"):
-        Auralizer(config=cfg, device="cpu").sonify(
-            np.zeros((2, 32, 32, 3)), mode="stream")
+        aur.sonify(np.zeros((2, 32, 32, 3)), mode="stream")

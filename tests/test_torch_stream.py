@@ -496,8 +496,6 @@ def test_pieces_still_to_port_raise():
     aur = Auralizer(config=AuralizerConfig(), device="cpu")
     for call in (lambda: aur.attach_control("ctl.fifo"),
                  lambda: aur.live_debug("out"), lambda: aur.serve(),
-                 lambda: aur.inspect_frame(np.zeros((32, 32, 3))),
-                 lambda: aur.sonify(np.zeros((2, 32, 32, 3)), debug=True),
                  lambda: Auralizer(config=AuralizerConfig(),
                                    model="orthomodes", device="cpu")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):

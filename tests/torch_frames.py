@@ -1,12 +1,22 @@
-"""Structured u8 test clips for the PyTorch port's parity tests, and the
-inputs of the audio tail K4 (numpy and torch only, so the GPU-only tests
-and chip_smoke.py can use it without jax)."""
+"""Structured u8 test clips for the PyTorch port's parity tests (RGB, and
+planar YUV 4:2:0 with an RGB -> I420/NV12 converter), and the inputs of
+the audio tail K4 (numpy and torch only, so the GPU-only tests and
+chip_smoke.py can use it without jax)."""
 
 import numpy as np
 import torch
 
 from vaudio_torch.dsp.core import hann_window_norm
 from vaudio_torch.ops import audio_kernel
+
+
+def _hue_bin_f64(r, g, b):
+    """The f64 hue of convolveFeatures.metal:14-38 in bins (h * 359, whose
+    floor is the bin) of RGB in [0, 1]."""
+    num = 0.5 * ((r - g) + (r - b))
+    den = np.sqrt((r - g) ** 2 + (r - b) * (g - b))
+    th = np.arccos(np.clip(num / np.where(den > 0, den, 1.0), -1.0, 1.0))
+    return np.where(b <= g, th, 2 * np.pi - th) / (2 * np.pi) * 359
 
 
 def _mid_bin_colors(seed: int = 1):
@@ -17,16 +27,86 @@ def _mid_bin_colors(seed: int = 1):
     rng = np.random.default_rng(seed)
     c = rng.integers(0, 256, (400000, 3)).astype(np.float64)
     c = c[(c.max(1) >= 160) & (c.min(1) <= 60)]
-    r, g, b = (c / 255.0).T
-    num = 0.5 * ((r - g) + (r - b))
-    den = np.sqrt((r - g) ** 2 + (r - b) * (g - b))
-    th = np.arccos(np.clip(num / den, -1.0, 1.0))
-    x = np.where(b <= g, th, 2 * np.pi - th) / (2 * np.pi) * 359
+    x = _hue_bin_f64(*(c / 255.0).T)
     keep = np.abs(x - np.floor(x) - 0.5) < 0.25
     return c[keep].astype(np.uint8), np.floor(x[keep]).astype(np.int64)
 
 
 _COLORS, _BINS = _mid_bin_colors()
+
+
+def rgb_to_yuv420(frames, studio_swing: bool = True) -> dict:
+    """u8 RGB (T, H, W, 3), H and W even -> planar YUV 4:2:0 (I420 planes)
+    ``{"y": (T, H, W), "u", "v": (T, H/2, W/2)}`` u8, BT.601 (Kr 0.299,
+    Kb 0.114); studio swing (Y 16-235, chroma 16-240) or full swing; each
+    chroma sample from the mean of its 2x2 block, all rounded to nearest."""
+    T, H, W, _ = frames.shape
+    out = {k: [] for k in "yuv"}
+    for f in frames:
+        r, g, b = (f.astype(np.float32) / np.float32(255.0)).transpose(2, 0,
+                                                                        1)
+        luma = 0.299 * r + 0.587 * g + 0.114 * b
+        cb = (b - luma) / 1.772
+        cr = (r - luma) / 1.402
+        ys, cs = (219.0, 224.0) if studio_swing else (255.0, 255.0)
+        planes = {"y": (16.0 if studio_swing else 0.0) + ys * luma,
+                  "u": 128.0 + cs * cb.reshape(H // 2, 2, W // 2, 2)
+                  .mean(axis=(1, 3)),
+                  "v": 128.0 + cs * cr.reshape(H // 2, 2, W // 2, 2)
+                  .mean(axis=(1, 3))}
+        for k, p in planes.items():
+            out[k].append(np.clip(np.rint(p), 0, 255).astype(np.uint8))
+    return {k: np.stack(v) for k, v in out.items()}
+
+
+def yuv420_bytes(planes: dict, t: int, fmt: str = "i420") -> bytes:
+    """Frame ``t`` of planar YUV as raw bytes: ``i420`` (Y, U, V planes) or
+    ``nv12`` (Y, then U and V interleaved)."""
+    y, u, v = (planes[k][t] for k in "yuv")
+    if fmt == "i420":
+        return y.tobytes() + u.tobytes() + v.tobytes()
+    uv = np.stack([u, v], axis=-1).reshape(u.shape[0], -1)
+    return y.tobytes() + uv.tobytes()
+
+
+def _yuv_safe_colors():
+    """The mid-bin colours whose hue, after the round trip through u8
+    studio-swing YUV and the device's BT.601 conversion (f64), still lies
+    in the middle half of a bin.  Returns (colors u8[N, 3], bins int[N])."""
+    # One frame of 2 x 2 blocks, a colour each.
+    yuv = rgb_to_yuv420(np.repeat(np.repeat(_COLORS[None, None], 2, axis=1),
+                                  2, axis=2))
+    y = (yuv["y"][0, 0, 0::2].astype(np.float64) - 16.0) / 219.0
+    u = (yuv["u"][0, 0].astype(np.float64) - 128.0) / 224.0
+    v = (yuv["v"][0, 0].astype(np.float64) - 128.0) / 224.0
+    rgb = np.clip([y + 1.402 * v, y - 0.344136 * u - 0.714136 * v,
+                   y + 1.772 * u], 0.0, 1.0)
+    x = _hue_bin_f64(*rgb)
+    keep = ((np.abs(x - np.floor(x) - 0.5) < 0.25) & (rgb.max(0) >= 0.6)
+            & (rgb.min(0) <= 0.25))
+    return _COLORS[keep], np.floor(x[keep]).astype(np.int64)
+
+
+_YUV_COLORS, _YUV_BINS = _yuv_safe_colors()
+
+
+def _structured(seed, T, H, W, mip, grid, colors, bins) -> np.ndarray:
+    rng = np.random.default_rng(seed)
+    hm, wm = H >> mip, W >> mip
+    row_of_x = (np.arange(wm) * grid) // wm
+    col_of_y = ((hm - 1 - np.arange(hm)) * grid) // hm
+    cell = row_of_x[None, :] * grid + col_of_y[:, None]
+    cell = np.repeat(np.repeat(cell, 1 << mip, 0), 1 << mip, 1)
+    prev = np.zeros(grid * grid, np.int64)
+    frames = np.zeros((T, H, W, 3), np.uint8)
+    for t in range(T):
+        pick = rng.integers(len(colors), size=grid * grid)
+        for k in range(grid * grid):
+            while (9 * prev[k] + bins[pick[k]]) % 10 == 0:
+                pick[k] = rng.integers(len(colors))
+            prev[k] = (9 * prev[k] + bins[pick[k]]) // 10
+        frames[t, :cell.shape[0], :cell.shape[1]] = colors[pick][cell]
+    return frames
 
 
 def structured_frames(seed: int, T: int, H: int, W: int, mip: int = 3,
@@ -40,22 +120,18 @@ def structured_frames(seed: int, T: int, H: int, W: int, mip: int = 3,
     XLA:CPU's FMA contraction decides differently from one fusion to the
     next (the JAX package's own scan and chunked paths disagree there).
     """
-    rng = np.random.default_rng(seed)
-    hm, wm = H >> mip, W >> mip
-    row_of_x = (np.arange(wm) * grid) // wm
-    col_of_y = ((hm - 1 - np.arange(hm)) * grid) // hm
-    cell = row_of_x[None, :] * grid + col_of_y[:, None]
-    cell = np.repeat(np.repeat(cell, 1 << mip, 0), 1 << mip, 1)
-    prev = np.zeros(grid * grid, np.int64)
-    frames = np.zeros((T, H, W, 3), np.uint8)
-    for t in range(T):
-        pick = rng.integers(len(_COLORS), size=grid * grid)
-        for k in range(grid * grid):
-            while (9 * prev[k] + _BINS[pick[k]]) % 10 == 0:
-                pick[k] = rng.integers(len(_COLORS))
-            prev[k] = (9 * prev[k] + _BINS[pick[k]]) // 10
-        frames[t, :cell.shape[0], :cell.shape[1]] = _COLORS[pick][cell]
-    return frames
+    return _structured(seed, T, H, W, mip, grid, _COLORS, _BINS)
+
+
+def structured_yuv_frames(seed: int, T: int, H: int, W: int, mip: int = 3,
+                          grid: int = 4) -> dict:
+    """:func:`structured_frames` as planar studio-swing YUV 4:2:0 (H, W
+    multiples of 2^mip), from colours whose hue stays mid-bin through the
+    YUV round trip, and with no hue-EMA tie on the hues the device's
+    conversion gives (the jitted JAX pipelines may contract the BT.601
+    products into FMAs, which moves the mips by an ulp)."""
+    return rgb_to_yuv420(_structured(seed, T, H, W, mip, grid, _YUV_COLORS,
+                                     _YUV_BINS))
 
 
 def k4_edge_frames(rng) -> np.ndarray:

@@ -3,9 +3,11 @@
 Same configuration (:class:`vaudio_torch.config.AuralizerConfig` and
 :class:`~vaudio_torch.config.LiveParams`, copies of the JAX package's),
 same layout and names as the JAX package, held to it by
-``tests/test_torch_*.py``.  Plain tensor code is PyTorch; the four kernels
-are hand-written CUDA C++ for Hopper (``csrc/``): the u8 mip pool
-(``ops.pool_kernel``), the Hann-peak spectrum contraction
+``tests/test_torch_*.py``; every ``AuralizerConfig`` field runs, and RGB
+frames (u8 or f32) or planar YUV 4:2:0 dicts ``{"y", "u", "v"}`` go in.
+Plain tensor code is PyTorch; the four kernels are hand-written CUDA C++
+for Hopper (``csrc/``): the u8 mip pool with its interleaved and planar
+entries (``ops.pool_kernel``), the Hann-peak spectrum contraction
 (``ops.spectrum_kernel``), the vision epilogue (``ops.vision_kernel``) and
 the AGC + overlap-add audio tail (``ops.audio_kernel``).  A CPU tensor runs
 each kernel's plain PyTorch version.
@@ -27,20 +29,8 @@ from vaudio_torch.config import AuralizerConfig, LiveParams
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
-# Features not ported yet, each with the ROADMAP item that ports it.  The
-# AuralizerConfig flags among them are named as the fields are.
+# Features not ported yet, each with the ROADMAP item that ports it.
 _NOT_PORTED = {
-    "use_phase_lut": "queue 1 item 6.1",
-    "use_matmul_irfft": "queue 1 item 6.2",
-    "use_matmul_ema": "queue 1 item 6.3",
-    "quantize_mips": "queue 1 item 6.4",
-    "quantize_mips_int8": "queue 1 item 6.4",
-    "planar YUV 4:2:0 frames": "queue 1 item 6.5",
-    "the vision debug maps": "queue 1 item 6.6",
-    "linear_cell_grads=False (the spatial gradient path)":
-        "queue 1 item 6.7",
-    "sonify(debug=True)": "queue 1 item 8",
-    "inspect_frame": "queue 1 item 8",
     "attach_control (the live control channel)": "queue 1 item 9.3",
     "live_debug": "queue 1 item 9.3",
     "serve (the live HTTP server)": "queue 1 item 9.3",
@@ -69,15 +59,5 @@ def not_ported(feature: str) -> NotImplementedError:
         f"{_NOT_PORTED[feature]}); use the JAX package for it")
 
 
-def check_config(cfg: AuralizerConfig) -> None:
-    """Raise for any flag the port does not implement yet, never ignore it."""
-    for name in _NOT_PORTED:
-        if getattr(cfg, name, False):
-            raise not_ported(name)
-    if not cfg.linear_cell_grads:
-        raise not_ported("linear_cell_grads=False (the spatial gradient "
-                         "path)")
-
-
-__all__ = ["AuralizerConfig", "LiveParams", "check_config", "device",
+__all__ = ["AuralizerConfig", "LiveParams", "device",
            "not_ported"]

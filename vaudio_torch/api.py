@@ -5,6 +5,7 @@ Offline::
 
     aur = Auralizer(config=AuralizerConfig(channels=2))
     audio = aur.sonify(frames)              # f32[T*hop, 2] PCM
+    audio = aur.sonify({"y": y, "u": u, "v": v})   # planar YUV 4:2:0
     aur.sonify_to_wav(frames, "out.wav")
 
 Streaming::
@@ -22,17 +23,20 @@ from __future__ import annotations
 from typing import Any, Dict, Iterable, Iterator, Optional, Union
 
 import numpy as np
+import torch
 
-from vaudio_torch import check_config, not_ported
+from vaudio_torch import not_ported
 from vaudio_torch.config import AuralizerConfig, LiveParams
 from vaudio_torch.io import ArraySource, write_wav
 from vaudio_torch.runtime.chunked import run_offline_batched
 from vaudio_torch.runtime.engine import make_engine
-from vaudio_torch.runtime.step import run_offline
+from vaudio_torch.runtime.step import num_frames, run_offline
 from vaudio_torch.runtime.stream import StreamingAuralizer
+from vaudio_torch.vision.features import extract_features
 
-# A source is a (T, H, W, 3) array, a bare iterable of frames, or any object
-# with .frames() (ArraySource or user-defined).
+# A source is a (T, H, W, 3) array, a bare iterable of frames (arrays or
+# dicts of YUV planes), or any object with .frames() (ArraySource,
+# RawVideoSource or user-defined).
 SourceLike = Union[ArraySource, np.ndarray, Iterable[np.ndarray], None]
 
 
@@ -58,7 +62,6 @@ class Auralizer:
         if isinstance(source, AuralizerConfig):
             raise TypeError("Auralizer's first argument is the frame "
                             "source; pass the config as config=...")
-        check_config(config)
         self._engine = make_engine(model, config, debug=debug,
                                    device=device)
         self.model = model
@@ -77,29 +80,32 @@ class Auralizer:
     # Offline
     # ------------------------------------------------------------------
 
-    def sonify(self, frames, debug: bool = False,
-               mode: str = "auto") -> np.ndarray:
-        """Sonify a whole clip (T, H, W, 3), u8 or f32 in [0, 1] (numpy, a
-        tensor or an :class:`ArraySource`).  Returns PCM f32[T*hop] mono or
-        f32[T*hop, channels].
+    def sonify(self, frames, debug: bool = False, mode: str = "auto"):
+        """Sonify a whole clip: RGB (T, H, W, 3), u8 or f32 in [0, 1]
+        (numpy, a tensor or an :class:`ArraySource`), or a dict
+        ``{"y", "u", "v"}`` of planar u8 YUV 4:2:0 (T, H, W) and
+        (T, H/2, W/2).  Returns PCM f32[T*hop] mono or f32[T*hop,
+        channels]; with ``debug`` (pcm, dict of per-frame hues, grads and
+        spectrum), as numpy.
 
         ``mode``: ``"chunked"`` = the chunk-batched pipeline; ``"scan"`` =
         frame by frame; ``"auto"`` picks chunked for clips of >= 8 frames.
         """
-        if debug:
-            raise not_ported("sonify(debug=True)")
         if isinstance(frames, ArraySource):
             frames = frames.tensor()
         if mode not in ("auto", "chunked", "scan"):
             raise ValueError(f"unknown sonify mode {mode!r} "
                              f"(expected auto, chunked or scan)")
         if mode == "auto":
-            mode = "chunked" if len(frames) >= 8 else "scan"
+            mode = "chunked" if num_frames(frames) >= 8 else "scan"
         run = run_offline_batched if mode == "chunked" else run_offline
-        audio, _carry, _dbg = run(frames, self.config,
-                                  self.params.as_arrays(),
-                                  device=self.device)
-        return audio.cpu().numpy()
+        audio, _carry, dbg = run(frames, self.config,
+                                 self.params.as_arrays(), debug=debug,
+                                 device=self.device)
+        audio = audio.cpu().numpy()
+        if not debug:
+            return audio
+        return audio, {k: v.cpu().numpy() for k, v in dbg.items()}
 
     def sonify_to_wav(self, frames, path: str) -> np.ndarray:
         audio = self.sonify(frames)
@@ -165,8 +171,26 @@ class Auralizer:
               refresh_ms: int = 500, token: Optional[str] = None):
         raise not_ported("serve (the live HTTP server)")
 
-    def inspect_frame(self, frame: np.ndarray) -> Dict[str, np.ndarray]:
-        raise not_ported("inspect_frame")
+    def inspect_frame(self, frame) -> Dict[str, np.ndarray]:
+        """One frame's full vision analysis (the ConvolutionDebugView
+        surface): hues, grads, the histogram, the rotated mode maps of all
+        three HSI channels and the mip's HSI, as numpy.  The hue EMA
+        starts from the stream's current hues and is not advanced.  A u8
+        frame goes to the device unconverted, through the same pooling as
+        the stream; RGB only."""
+        frame = np.asarray(frame)
+        if frame.dtype != np.uint8:
+            frame = frame.astype(np.float32, copy=False)
+        dev = self.device
+        hues, grads, dbg = extract_features(
+            torch.as_tensor(frame).to(dev),
+            torch.as_tensor(self._stream.snapshot_carry().hues).to(dev),
+            torch.tensor(np.float32(self.params.spectrum_mixing),
+                         device=dev),
+            self.config, compute_debug_maps=True)
+        out = {"hues": hues.cpu().numpy(), "grads": grads.cpu().numpy()}
+        out.update({k: v.cpu().numpy() for k, v in dbg.items()})
+        return out
 
     # ------------------------------------------------------------------
     # Observability

@@ -8,6 +8,8 @@ leading batch dimensions.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -20,6 +22,32 @@ def hann_window_norm(n: int) -> np.ndarray:
     k = np.arange(n, dtype=np.float64)
     w = np.sqrt(2.0 / 3.0) * (1.0 - np.cos(_TWO_PI * k / n))
     return w.astype(np.float32)
+
+
+def linspace(start: float, end: float, num: int) -> np.ndarray:
+    """``linspace`` with the reference's inclusive endpoint convention
+    (HelperFunctions.swift:148-152); a host constant."""
+    if num <= 1:
+        return np.asarray([start], dtype=np.float32)
+    return np.linspace(start, end, num, dtype=np.float32)
+
+
+def linear_to_log2(x, x0: float = 20.0, x1: float = 20000.0,
+                   y0: float = 400.0, y1: float = 790.0):
+    """Display-space log2 mapping (HelperFunctions.swift:53-61), in f32."""
+    x = torch.as_tensor(x, dtype=torch.float32)
+    m = float(np.float32((y1 - y0) / np.log2(x1 / x0)))
+    ratio = x / torch.full((), x0, dtype=torch.float32, device=x.device)
+    return m * torch.log2(ratio) + float(np.float32(y0))
+
+
+def hash_phase(x):
+    """The shader's hash phase fract(sin(x) 43758.5453) 2 pi in f32
+    (SpectrumCompute.metal:97,136,180).  An ulp of the platform's sine
+    moves it by up to ~0.03 rad: pseudo-random phases, not signal."""
+    x = torch.as_tensor(x, dtype=torch.float32)
+    s = torch.sin(x) * float(np.float32(43758.5453))
+    return (s - torch.floor(s)) * float(np.float32(_TWO_PI))
 
 
 def sinc(x):
@@ -102,6 +130,45 @@ def irfft_from_half(spectrum):
     half = torch.complex(spectrum[..., 0], spectrum[..., 1])
     rspec = torch.nn.functional.pad(half, (1, 1))      # F+2 = nfft/2+1
     return torch.fft.irfft(rspec, n=2 * (F + 1)).to(torch.float32)
+
+
+def mirror_and_conjugate(half_re, half_im):
+    """The full Hermitian spectrum (..., nfft) complex64 of an F-bin half
+    spectrum (HelperFunctions.swift:110-129): nfft = 2 (F + 1), DC and
+    Nyquist zero, full[k+1] = half[k], full[nfft-(k+1)] = conj(half[k])."""
+    half = torch.complex(half_re.to(torch.float32),
+                         half_im.to(torch.float32))
+    zero = torch.zeros(half.shape[:-1] + (1,), dtype=half.dtype,
+                       device=half.device)
+    return torch.cat([zero, half, zero,
+                      torch.conj(torch.flip(half, dims=(-1,)))], dim=-1)
+
+
+@functools.lru_cache(maxsize=4)
+def _idft_matrices(F: int, nfft: int, device=torch.device("cpu")):
+    """f32 inverse-DFT weights (F, nfft) of the dense irfft on ``device``:
+    with DC and Nyquist zero, x[n] = (2/N) sum_k (re_k cos(2 pi (k+1) n / N)
+    - im_k sin(...)), the 2/N folded in; built in f64, cast to f32 once and
+    moved once per (F, nfft, device) (2 x 2047 x 4096 f32 = 67 MB), as the
+    JAX package's ``_idft_matrices``."""
+    k = np.arange(1, F + 1, dtype=np.float64)[:, None]
+    n = np.arange(nfft, dtype=np.float64)[None, :]
+    ang = 2.0 * np.pi * k * n / nfft
+    return (torch.as_tensor(((2.0 / nfft) * np.cos(ang)).astype(np.float32),
+                            device=device),
+            torch.as_tensor(((2.0 / nfft) * np.sin(ang)).astype(np.float32),
+                            device=device))
+
+
+def irfft_from_half_dense(spectrum):
+    """:func:`irfft_from_half` as two dense f32 matrix products (TF32 is
+    off, so full f32; ``cfg.use_matmul_irfft``): (..., F, 2) ->
+    (..., 2(F+1))."""
+    F = spectrum.shape[-2]
+    cos_m, sin_m = _idft_matrices(F, 2 * (F + 1),
+                                  torch.device(spectrum.device))
+    return (torch.matmul(spectrum[..., 0], cos_m)
+            - torch.matmul(spectrum[..., 1], sin_m))
 
 
 def sigmoid_normalize(x, M, k: float = 2.0):

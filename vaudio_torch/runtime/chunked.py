@@ -16,14 +16,15 @@ from typing import Any, Callable, Dict
 import numpy as np
 import torch
 
-from vaudio_torch import check_config
 from vaudio_torch import device as pick_device
 from vaudio_torch.config import AuralizerConfig
-from vaudio_torch.dsp.core import hann_window_norm, irfft_from_half
+from vaudio_torch.dsp.core import (hann_window_norm, irfft_from_half,
+                                   irfft_from_half_dense)
 from vaudio_torch.ops.audio_kernel import agc_overlap_add_chunk
 from vaudio_torch.runtime.step import (StepCarry, carry_from_numpy,
-                                       check_frames, frames_to_device,
-                                       init_carry, params_to_device)
+                                       check_frames, frames_slice,
+                                       frames_to_device, init_carry,
+                                       num_frames, params_to_device)
 from vaudio_torch.synth.spectrum import (SynthConstants, contract_spectrum,
                                          filter_gain_from_params,
                                          flatten_partials,
@@ -54,13 +55,13 @@ def associative_scan(fn: Callable, x):
 def chunk_pipeline(carry: StepCarry, frames, params: Dict[str, Any],
                    cfg: AuralizerConfig, consts: SynthConstants, window,
                    debug: bool = False):
-    """Process a chunk of T frames (T, H, W, 3) on their device; returns
-    (new_carry, out) with out["pcm"] f32[T, hop] mono or f32[T, hop,
-    channels] stereo, and with ``debug`` also hues, grads and spectrum
-    per frame.  ``params`` as from :func:`runtime.step.params_to_device`."""
-    check_config(cfg)
+    """Process a chunk of T frames (T, H, W, 3), or a dict of YUV planes
+    (T, ...), on their device; returns (new_carry, out) with out["pcm"]
+    f32[T, hop] mono or f32[T, hop, channels] stereo, and with ``debug``
+    also hues, grads and spectrum per frame.  ``params`` as from
+    :func:`runtime.step.params_to_device`."""
     mixing = params["spectrum_mixing"]
-    T = frames.shape[0]
+    T = num_frames(frames)
 
     # ---- pass A: vision stats batched; hue EMA (and phases) serial ----
     hists, grads_seq = frame_stats(frames, cfg)         # (T,16,360), (T,16,4)
@@ -91,7 +92,7 @@ def chunk_pipeline(carry: StepCarry, frames, params: Dict[str, Any],
         phases_seq = torch.stack(phase_list)
 
     # ---- pass B: weights + ONE batched contraction (K2) + rotation ----
-    pan = live_pan_from_params(cfg, params, frames.device)
+    pan = live_pan_from_params(cfg, params, mixing.device)
     pf, w_re, w_im, inv_bw = partial_weights(hues_seq, grads_seq, phases_seq,
                                              cfg, consts)
     flat_pf, flat_w, flat_ibw = flatten_partials(pf, w_re, w_im, inv_bw, cfg,
@@ -101,16 +102,21 @@ def chunk_pipeline(carry: StepCarry, frames, params: Dict[str, Any],
     if cfg.enable_filters:
         rot = rot * filter_gain_from_params(params, consts)
 
-    # ---- pass C1: spectrum EMA, serial ----
-    prev = carry.prev_spectrum
-    spec_list = []
-    for t in range(T):
-        prev = prev * mixing + rot[t] * (1.0 - mixing)
-        spec_list.append(prev)
-    spectra = torch.stack(spec_list)
+    # ---- pass C1: spectrum EMA, serial, or one matrix product ----
+    if cfg.use_matmul_ema:
+        spectra = _matmul_ema(rot, carry.prev_spectrum, mixing)
+        prev = spectra[-1]
+    else:
+        prev = carry.prev_spectrum
+        spec_list = []
+        for t in range(T):
+            prev = prev * mixing + rot[t] * (1.0 - mixing)
+            spec_list.append(prev)
+        spectra = torch.stack(spec_list)
 
     # ---- pass C2: audio tail, one call of K4 over the chunk ----
-    signals = irfft_from_half(spectra)                  # (T, [ch,] nfft)
+    signals = (irfft_from_half_dense(spectra) if cfg.use_matmul_irfft
+               else irfft_from_half(spectra))           # (T, [ch,] nfft)
     pcm, ola_tail, rm = agc_overlap_add_chunk(
         signals, carry.ola_tail, window, carry.running_max,
         params["attack"], params["release"])            # (T, hop[, ch])
@@ -124,18 +130,39 @@ def chunk_pipeline(carry: StepCarry, frames, params: Dict[str, Any],
     return new_carry, out
 
 
+def _matmul_ema(rot, prev, mixing):
+    """The spectrum EMA of a chunk in closed form (cfg.use_matmul_ema,
+    vaudio/runtime/chunked.py:201-224): spec_t = m^(t+1) prev + (1 - m)
+    sum_{k<=t} m^(t-k) rot_k as one lower-triangular (T, T) f32 product
+    (TF32 is off).  Reassociated against the serial EMA (~1e-6 abs at
+    T=64), and torch.pow may differ from XLA's by an ulp."""
+    T = rot.shape[0]
+    t_idx = torch.arange(T, device=rot.device)
+    lower = t_idx[:, None] >= t_idx[None, :]
+    tk = (t_idx[:, None] - t_idx[None, :]).to(torch.float32)
+    L = torch.where(lower, (1.0 - mixing) * torch.pow(
+        mixing, torch.where(lower, tk, torch.zeros_like(tk))),
+        torch.zeros_like(tk))
+    pows = torch.pow(mixing, torch.arange(1, T + 1, dtype=torch.float32,
+                                          device=rot.device))
+    spectra = torch.matmul(L, rot.reshape(T, -1)) \
+        + pows[:, None] * prev.reshape(1, -1)
+    return spectra.reshape(rot.shape)
+
+
 def blocked_pipeline(carry: StepCarry, frames, params: Dict[str, Any],
                      cfg: AuralizerConfig, consts: SynthConstants, window,
                      block: int = 8, debug: bool = False):
     """:func:`chunk_pipeline` over consecutive ``block``-frame pieces of a
     clip whose length is a multiple of ``block``."""
-    T = frames.shape[0]
+    T = num_frames(frames)
     if T % block:
         raise ValueError(f"blocked_pipeline: T={T} not a multiple of "
                          f"block={block}")
     outs = []
     for start in range(0, T, block):
-        carry, out = chunk_pipeline(carry, frames[start:start + block],
+        carry, out = chunk_pipeline(carry,
+                                    frames_slice(frames, start, start + block),
                                     params, cfg, consts, window, debug=debug)
         outs.append(out)
     return carry, {k: torch.cat([o[k] for o in outs]) for k in outs[0]}
@@ -165,8 +192,9 @@ def run_offline_batched(frames, cfg: AuralizerConfig,
                         chunk: int = 64, debug: bool = False, device=None):
     """Offline sonification through the chunk-batched pipeline, ``chunk``
     frames at a time (the last piece may be shorter), carrying the DSP
-    state across pieces.  ``frames`` (T, H, W, 3) u8 or f32, numpy or a
-    tensor; each piece is moved to ``device`` as it is processed.
+    state across pieces.  ``frames`` (T, H, W, 3) u8 or f32, or a dict
+    ``{"y", "u", "v"}`` of planar u8 YUV 4:2:0, numpy or tensors; each
+    piece is moved to ``device`` as it is processed.
 
     Returns (audio f32[T*hop] or f32[T*hop, channels], final_carry,
     debug_dict of per-frame hues/grads/spectra when ``debug``), tensors on
@@ -178,10 +206,11 @@ def run_offline_batched(frames, cfg: AuralizerConfig,
     params = params_to_device(params, cfg, dev)
     carry = init_carry(cfg, dev) if carry is None \
         else carry_from_numpy(carry, dev)
-    T = frames.shape[0]
+    T = num_frames(frames)
     outs = []
     for start in range(0, T, chunk):
-        carry, out = step(carry, frames[start:start + chunk], params)
+        carry, out = step(carry, frames_slice(frames, start, start + chunk),
+                          params)
         outs.append(out)
     outs = {k: torch.cat([o[k] for o in outs]) for k in outs[0]}
     audio = outs.pop("pcm")

@@ -12,11 +12,11 @@ from typing import Any, Dict, NamedTuple, Optional
 import numpy as np
 import torch
 
-from vaudio_torch import check_config, not_ported
 from vaudio_torch import device as pick_device
 from vaudio_torch.config import AuralizerConfig, LiveParams
 from vaudio_torch.dsp.core import (agc_normalize, hann_window_norm,
-                                   irfft_from_half, overlap_add)
+                                   irfft_from_half, irfft_from_half_dense,
+                                   overlap_add)
 from vaudio_torch.ops.audio_kernel import agc_overlap_add
 from vaudio_torch.synth.spectrum import (SynthConstants, build_spectrum,
                                          phase_accumulate)
@@ -93,8 +93,11 @@ def synth_audio(spectrum, ola_tail, running_max, params: Dict[str, Any],
     are kernel K4 at T=1 in the frame order
     (:func:`ops.audio_kernel.agc_overlap_add`), as the JAX package runs its
     fused kernel there.
+    ``cfg.use_matmul_irfft`` takes the dense inverse DFT
+    (:func:`dsp.core.irfft_from_half_dense`) for the FFT.
     Returns (pcm, new_ola_tail, new_running_max)."""
-    signal = irfft_from_half(spectrum)
+    signal = (irfft_from_half_dense(spectrum) if cfg.use_matmul_irfft
+              else irfft_from_half(spectrum))
     if cfg.use_pallas or cfg.use_pallas_audio:
         pcm, new_tail, new_max = agc_overlap_add(
             signal, ola_tail, window, running_max, params["attack"],
@@ -111,12 +114,12 @@ def synth_audio(spectrum, ola_tail, running_max, params: Dict[str, Any],
 def frame_step(carry: StepCarry, frame, params: Dict[str, Any],
                cfg: AuralizerConfig, consts: SynthConstants, window,
                debug: bool = False):
-    """One video frame (H, W, 3) in, one audio hop out: vision -> phase
+    """One video frame (H, W, 3), or a dict of its YUV planes, in, one
+    audio hop out: vision -> phase
     accumulation -> spectrum -> irfft/AGC/OLA.  ``params`` as from
     :func:`params_to_device`.  Returns (new_carry, out) with out["pcm"]
     f32[hop] (mono) or f32[hop, channels]; with ``debug`` also hues, grads
     and spectrum."""
-    check_config(cfg)
     mixing = params["spectrum_mixing"]
     hues, grads = extract_features(frame, carry.hues, mixing, cfg)
     phases = phase_accumulate(carry.phases, hues, cfg, consts)
@@ -141,13 +144,14 @@ def make_step(cfg: AuralizerConfig, debug: bool = False, jit: bool = True,
     :func:`params_to_device`.  ``jit`` is accepted and does nothing:
     PyTorch runs eagerly.  Every call returns new tensors and leaves the
     carry it was given untouched."""
-    check_config(cfg)
     dev = pick_device(device)
     consts = SynthConstants.create(cfg, dev)
     window = torch.as_tensor(hann_window_norm(cfg.nfft), device=dev)
 
     def step(carry, frame, params):
-        return frame_step(carry, frames_to_device(frame[None], dev)[0],
+        batch = ({k: v[None] for k, v in frame.items()}
+                 if isinstance(frame, dict) else frame[None])
+        return frame_step(carry, frame_at(frames_to_device(batch, dev), 0),
                           params_to_device(params, cfg, dev), cfg, consts,
                           window, debug=debug)
 
@@ -155,23 +159,56 @@ def make_step(cfg: AuralizerConfig, debug: bool = False, jit: bool = True,
 
 
 def check_frames(frames):
-    """A clip (T, H, W, 3) as a tensor, not yet moved (a numpy array is
-    shared, not copied)."""
+    """A clip as tensors, not yet moved (a numpy array is shared, not
+    copied): RGB (T, H, W, 3), or a dict ``{"y", "u", "v"}`` of planar
+    YUV 4:2:0 (T, H, W), (T, H/2, W/2)."""
     if isinstance(frames, dict):
-        raise not_ported("planar YUV 4:2:0 frames")
-    frames = torch.as_tensor(np.asarray(frames)
-                             if not isinstance(frames, torch.Tensor)
-                             else frames)
+        planes = {k: _as_tensor(frames[k]) for k in ("y", "u", "v")}
+        y = planes["y"]
+        if y.ndim != 3 or any(planes[k].shape[0] != y.shape[0]
+                              or planes[k].ndim != 3 for k in ("u", "v")):
+            raise ValueError(f"expected YUV planes y [T, H, W], u and v "
+                             f"[T, H/2, W/2]; got shapes "
+                             f"{[tuple(p.shape) for p in planes.values()]}")
+        return planes
+    frames = _as_tensor(frames)
     if frames.ndim != 4 or frames.shape[-1] != 3:
         raise ValueError(f"expected frames [T, H, W, 3]; got shape "
                          f"{tuple(frames.shape)}")
     return frames
 
 
+def _as_tensor(x):
+    return x if isinstance(x, torch.Tensor) else torch.as_tensor(
+        np.asarray(x))
+
+
+def num_frames(frames) -> int:
+    """T of a clip: RGB frames or a dict of YUV planes."""
+    return len(frames["y"] if isinstance(frames, dict) else frames)
+
+
+def frame_at(frames, t: int):
+    """Frame ``t`` of a clip: (H, W, 3), or a dict of its YUV planes."""
+    if isinstance(frames, dict):
+        return {k: v[t] for k, v in frames.items()}
+    return frames[t]
+
+
+def frames_slice(frames, start: int, end: int):
+    """Frames ``start:end`` of a clip (each plane of a YUV dict)."""
+    if isinstance(frames, dict):
+        return {k: v[start:end] for k, v in frames.items()}
+    return frames[start:end]
+
+
 def frames_to_device(frames, device):
-    """A clip (T, H, W, 3) as a tensor on ``device`` (u8 stays u8, any
-    other type becomes f32)."""
+    """A clip as tensors on ``device``: RGB (T, H, W, 3), u8 staying u8
+    and any other type becoming f32, or a dict of YUV planes, each moved
+    as it is."""
     frames = check_frames(frames)
+    if isinstance(frames, dict):
+        return {k: v.to(device) for k, v in frames.items()}
     if frames.dtype != torch.uint8:
         frames = frames.to(torch.float32)
     return frames.to(device)
@@ -195,26 +232,27 @@ def run_offline(frames, cfg: AuralizerConfig,
         else carry_from_numpy(carry, dev)
     consts = SynthConstants.create(cfg, dev)
     window = torch.as_tensor(hann_window_norm(cfg.nfft), device=dev)
-    T = frames.shape[0]
+    T = num_frames(frames)
     if block > 1 and T >= block:
         # Imported here: runtime.chunked imports this module.
         from vaudio_torch.runtime.chunked import blocked_pipeline, \
             chunk_pipeline
         main = T - T % block
-        carry, out = blocked_pipeline(carry, frames[:main], params, cfg,
-                                      consts, window, block=block,
-                                      debug=debug)
+        carry, out = blocked_pipeline(carry, frames_slice(frames, 0, main),
+                                      params, cfg, consts, window,
+                                      block=block, debug=debug)
         outs = [out]
         if T > main:
-            carry, out = chunk_pipeline(carry, frames[main:], params, cfg,
-                                        consts, window, debug=debug)
+            carry, out = chunk_pipeline(carry, frames_slice(frames, main, T),
+                                        params, cfg, consts, window,
+                                        debug=debug)
             outs.append(out)
         outs = {k: torch.cat([o[k] for o in outs]) for k in outs[0]}
     else:
         per_frame = []
         for t in range(T):
-            carry, out = frame_step(carry, frames[t], params, cfg, consts,
-                                    window, debug=debug)
+            carry, out = frame_step(carry, frame_at(frames, t), params,
+                                    cfg, consts, window, debug=debug)
             per_frame.append(out)
         outs = {k: torch.stack([o[k] for o in per_frame])
                 for k in per_frame[0]}

@@ -299,11 +299,13 @@ class StreamingAuralizer:
 
     # -- producer ----------------------------------------------------------
 
-    def _to_device(self, frame: np.ndarray):
-        """One host frame as a tensor on the engine's device.  On the CPU
-        ``torch.as_tensor`` shares host memory, so a borrowed (pool) frame
-        is copied; to the card, a pageable copy has consumed the host
-        memory when it returns."""
+    def _to_device(self, frame):
+        """One host frame (or a dict of its YUV planes) as tensors on the
+        engine's device.  On the CPU ``torch.as_tensor`` shares host
+        memory, so a borrowed (pool) frame is copied; to the card, a
+        pageable copy has consumed the host memory when it returns."""
+        if isinstance(frame, dict):
+            return {k: self._to_device(v) for k, v in frame.items()}
         dev = self.engine.device
         if dev.type == "cpu" and isinstance(frame, BorrowedFrame):
             frame = np.array(frame)
@@ -367,7 +369,12 @@ class StreamingAuralizer:
                     self._carry, out = self._step(self._carry, frame_dev,
                                                   params_arrays)
             else:
-                batch = self._to_device(np.stack(frames_np))
+                if isinstance(frames_np[0], dict):   # planar YUV chunks
+                    batch = {k: np.stack([f[k] for f in frames_np])
+                             for k in frames_np[0]}
+                else:
+                    batch = np.stack(frames_np)
+                batch = self._to_device(batch)
                 with self._carry_lock:
                     self._carry, out = self._chunk_step(self._carry, batch,
                                                         params_arrays)
@@ -394,13 +401,15 @@ class StreamingAuralizer:
                     time.sleep(next_deadline - now)
                 next_deadline = max(next_deadline + frame_period,
                                     time.monotonic())
-            if isinstance(frame, dict):
-                raise not_ported("planar YUV 4:2:0 frames")
             # asanyarray keeps the BorrowedFrame marker of a pool view.
-            frame_np = np.asanyarray(frame)
-            if frame_np.dtype != np.uint8:      # u8 ships 4x fewer bytes
-                frame_np = frame_np.astype(np.float32, copy=False)
-            shape = tuple(frame_np.shape)
+            if isinstance(frame, dict):         # planar YUV 4:2:0
+                frame_np = {k: np.asanyarray(v) for k, v in frame.items()}
+                shape = tuple(frame_np["y"].shape)
+            else:
+                frame_np = np.asanyarray(frame)
+                if frame_np.dtype != np.uint8:  # u8 ships 4x fewer bytes
+                    frame_np = frame_np.astype(np.float32, copy=False)
+                shape = tuple(frame_np.shape)
             if last_shape is not None and shape != last_shape:
                 # Mid-stream resolution change: flush the partial chunk at
                 # the old shape as single steps (frames of two shapes do

@@ -9,11 +9,11 @@ The host constants are built by the same numpy code as the JAX package's.
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
 
-from vaudio_torch import not_ported
 from vaudio_torch.config import BESSEL_RATIOS, AuralizerConfig
 from vaudio_torch.dsp.core import find_closest_index, hue_to_f0
 from vaudio_torch.ops.spectrum_kernel import hann_peak_weighted_sum
@@ -102,6 +102,14 @@ class SynthConstants:
     def num_partials(self) -> int:
         return self.seed_phase.shape[1]
 
+    @functools.cached_property
+    def table_bytes(self) -> bytes:
+        """The bytes of the bin grid and the harmonic numbers, which with
+        the Bessel ratios decide the phase advance table; read from the
+        device once per object."""
+        return (self.freqs.cpu().numpy().tobytes()
+                + self.harmonic_numbers.cpu().numpy().tobytes())
+
 
 # ---------------------------------------------------------------------------
 # Phase accumulation (SoundEngine.swift:257-286)
@@ -110,8 +118,6 @@ class SynthConstants:
 def _advance_freqs(hues, cfg: AuralizerConfig, consts: SynthConstants):
     """(f32[..., 16, 32] partial frequencies of the phase slots, the f32
     advance factor 2 pi hop / fs)."""
-    if cfg.use_phase_lut:
-        raise not_ported("use_phase_lut")
     freqs = consts.freqs
     f0 = freqs[find_closest_index(
         freqs, hue_to_f0(hues, cfg.f0_base, cfg.f0_octaves))]
@@ -124,9 +130,37 @@ def _advance_freqs(hues, cfg: AuralizerConfig, consts: SynthConstants):
         2.0 * np.pi * cfg.hop_size / cfg.sample_rate))
 
 
+#: The phase advance tables of use_phase_lut, keyed by what decides them.
+_ADV_TABLES: dict = {}
+
+
+def _phase_advance_table(cfg: AuralizerConfig, consts: SynthConstants):
+    """(360, 32) raw phase advances, one row per hue bin: the direct
+    advance of every hue the EMA can give, built once on the constants'
+    device with the direct path's own ops, so a gather through it equals
+    the direct computation there bit for bit (cfg.use_phase_lut).
+
+    Keyed by the values that decide the table (f0_base, f0_octaves,
+    hop_size, sample_rate, the bytes of the bin grid, harmonic numbers and
+    Bessel ratios) and the device, never by the constants' identity
+    (ADVICE.md:3)."""
+    key = (cfg.f0_base, cfg.f0_octaves, cfg.hop_size, cfg.sample_rate,
+           consts.table_bytes, BESSEL_RATIOS, str(consts.freqs.device))
+    table = _ADV_TABLES.get(key)
+    if table is None:
+        hues = torch.arange(360, dtype=torch.int32,
+                            device=consts.freqs.device)
+        pfreq, factor = _advance_freqs(hues, cfg, consts)
+        table = _ADV_TABLES[key] = factor * pfreq
+    return table
+
+
 def phase_advance(hues, cfg: AuralizerConfig, consts: SynthConstants):
     """Raw (pre-mod) per-frame phase advance of every partial slot:
-    i32[..., 16] hues -> f32[..., 16, 32]."""
+    i32[..., 16] hues in [0, 360) -> f32[..., 16, 32]; with
+    ``cfg.use_phase_lut`` a gather from :func:`_phase_advance_table`."""
+    if cfg.use_phase_lut:
+        return _phase_advance_table(cfg, consts)[hues.long()]
     pfreq, factor = _advance_freqs(hues, cfg, consts)
     return factor * pfreq
 
@@ -140,11 +174,19 @@ def phase_accumulate(phases, hues, cfg: AuralizerConfig,
     one fused multiply-add (measured: its phases equal the FMA's bit for
     bit and differ from two roundings by 1 ulp of the ~5000 rad advance).
     The port computes that FMA exactly: the f64 product and sum of f32
-    operands are exact, and the one rounding to f32 is the FMA's.
+    operands are exact, and the one rounding to f32 is the FMA's.  With
+    ``cfg.use_phase_lut`` the JAX package adds a gathered table entry, a
+    plain f32 add with no product to contract, and so does the port (its
+    phases then differ from the default config's by up to an ulp of the
+    advance).
     """
+    two_pi = float(np.float32(2.0 * np.pi))
+    if cfg.use_phase_lut:
+        return torch.remainder(phases + phase_advance(hues, cfg, consts),
+                               two_pi)
     pfreq, factor = _advance_freqs(hues, cfg, consts)
     fused = (factor * pfreq.double() + phases.double()).to(torch.float32)
-    return torch.remainder(fused, float(np.float32(2.0 * np.pi)))
+    return torch.remainder(fused, two_pi)
 
 
 # ---------------------------------------------------------------------------

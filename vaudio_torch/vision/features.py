@@ -14,7 +14,6 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from vaudio_torch import not_ported
 from vaudio_torch.config import AuralizerConfig
 from vaudio_torch.ops import pool_kernel
 
@@ -120,31 +119,92 @@ def _pool_matrix(n: int, level: int) -> np.ndarray:
     return p
 
 
+def _pool_one_level(planes):
+    """f32 (..., H, W) -> (..., H // 2, W // 2): one 2x2 mean level as the
+    JAX package's two banded f32 products (0/0.5 entries, rows first) give
+    it: each output of a product is fl(0.5 a + 0.5 b), the zero terms
+    adding exactly; an odd last row or column is dropped."""
+    h, w = planes.shape[-2:]
+    x = planes[..., :h & ~1, :w & ~1]
+    rows = x[..., 0::2, :] * 0.5 + x[..., 1::2, :] * 0.5
+    return rows[..., 0::2] * 0.5 + rows[..., 1::2] * 0.5
+
+
+def _quant_pool_level_u8(m):
+    """One 8-bit mip level in integer arithmetic: u8 (..., H, W) ->
+    u8 (..., H // 2, W // 2), the round-half-to-even of each 2x2 block mean
+    (vaudio/vision/features.py:167-204): base = S >> 2 plus one where
+    rem = S & 3 is 3, or 2 with an odd base."""
+    h, w = m.shape[-2:]
+    x = m[..., :h & ~1, :w & ~1].to(torch.int32)
+    s = (x[..., 0::2, 0::2] + x[..., 1::2, 0::2] + x[..., 0::2, 1::2]
+         + x[..., 1::2, 1::2])
+    base = s >> 2
+    rem = s & 3
+    bump = (rem == 3) | ((rem == 2) & ((base & 1) == 1))
+    return (base + bump.to(torch.int32)).to(torch.uint8)
+
+
+def _div(x, d: float):
+    """x / d as a true division on every device (on CUDA, dividing by a
+    Python float is a multiply by its reciprocal, 1 ulp off)."""
+    return x / torch.full((), d, dtype=x.dtype, device=x.device)
+
+
 def mip_downsample_planes(planes, level: int, quantize: bool = False,
                           scale: float = 1.0, quantize_int8: bool = False):
     """(..., C, H, W) planes -> (..., C, H >> l, W >> l) box downsample
     (VisionEngine.swift:152-173,189-192); ``scale`` folds the u8 1/255.
 
-    u8 planes take the exact integer path (:func:`ops.pool_kernel.
-    mip_pool_plain`, kernel K1's plain version); f32 planes the two banded
-    f32 matmuls of the JAX package.
+    u8 planes take the exact integer path, kernel K1's planar entry
+    (:func:`ops.pool_kernel.mip_pool_planes`; its plain version on the
+    CPU); f32 planes the two banded f32 matmuls of the JAX package.
+    ``quantize`` rounds every level to the 8-bit grid like a bgra8Unorm
+    mip chain: u8 planes with ``quantize_int8`` and scale 1/255 in integer
+    arithmetic (round half to even), else the f32 emulation level by level
+    (plain PyTorch, as the JAX package computes both outside its kernel).
     """
     h, w = planes.shape[-2:]
     if (h >> level) == 0 or (w >> level) == 0:
         raise ValueError(f"frame dims ({h},{w}) too small for mip {level}")
-    if quantize or quantize_int8:
-        raise not_ported("quantize_mips")
+    is_u8 = planes.dtype == torch.uint8
+    if quantize:
+        if (quantize_int8 and is_u8 and level >= 1
+                and abs(scale * 255.0 - 1.0) < 1e-9):
+            m = planes
+            for _ in range(level):
+                m = _quant_pool_level_u8(m)
+            return m.to(torch.float32) * float(np.float32(1.0 / 255.0))
+        planes = planes.to(torch.float32)
+        if scale != 1.0:
+            planes = planes * float(np.float32(scale))
+        for _ in range(level):
+            # round(x * 255) / 255, the division a true one (see _div).
+            planes = _div(torch.round(_pool_one_level(planes) * 255.0),
+                          255.0)
+        return planes
     if level == 0:
         planes = planes.to(torch.float32)
         return planes * float(np.float32(scale)) if scale != 1.0 else planes
-    if planes.dtype == torch.uint8 and level <= 7:
-        return pool_kernel.mip_pool_plain(planes, level, scale)
+    if is_u8 and level <= 7:
+        return pool_kernel.mip_pool_planes(planes.contiguous(), level, scale)
     dev = planes.device
     pr = torch.as_tensor(_pool_matrix(h, level) * np.float32(scale),
                          device=dev)
     pc = torch.as_tensor(_pool_matrix(w, level), device=dev)
     rows = torch.matmul(planes.to(torch.float32).transpose(-1, -2), pr)
     return torch.matmul(rows.transpose(-1, -2), pc)
+
+
+# ---------------------------------------------------------------------------
+# Rotation
+# ---------------------------------------------------------------------------
+
+def rotate_cw(x):
+    """The kernels' rotated output indexing (convolveFeatures.metal:53-59):
+    a 90-degree clockwise rotation, (H, W, ...) -> (W, H, ...); for the
+    debug maps."""
+    return torch.rot90(x, k=-1, dims=(0, 1))
 
 
 # ---------------------------------------------------------------------------
@@ -299,18 +359,45 @@ def update_hues(hist, prev_hues, mixing, cfg: AuralizerConfig):
 # Gradient statistics
 # ---------------------------------------------------------------------------
 
+def _spatial_cell_stats(modes, cfg: AuralizerConfig):
+    """The clean spatial cells (cfg.linear_cell_grads=False,
+    vaudio/vision/features.py:655-666): the statistics over the histogram's
+    tiles, as f32 products with the pixel -> cell one-hot (TF32 is off, so
+    they are full f32 products; the JAX package's sum order is not
+    reproduced: rtol 1e-5), and the max as a scatter-max from 0."""
+    hm, wm = modes.shape[-2:]
+    lead = modes.shape[:-3]
+    cells = cfg.num_cells
+    dev = modes.device
+    cell_idx = torch.as_tensor(
+        _cell_ids_unrotated((hm, wm), cfg.grid_size).reshape(-1), device=dev)
+    oh = (cell_idx[:, None] == torch.arange(cells, device=dev)).to(
+        torch.float32)                                          # (p, cells)
+    counts = torch.sum(oh, dim=0)
+    flat = modes.reshape(lead + (4, hm * wm))
+    sq = torch.matmul(flat[..., 0, :] * flat[..., 0, :], oh)
+    ay = torch.matmul(torch.abs(flat[..., 1, :]), oh)
+    az = torch.matmul(torch.abs(flat[..., 2, :]), oh)
+    a3 = torch.abs(flat[..., 3, :])
+    aw = torch.zeros(lead + (cells,), dtype=torch.float32, device=dev) \
+        .scatter_reduce(-1, cell_idx.expand(a3.shape), a3, "amax")
+    return torch.stack([torch.sqrt(sq / counts), ay / counts, az / counts,
+                        aw], dim=-1)
+
+
 def cell_gradient_stats_planes(modes, cfg: AuralizerConfig):
     """Per-cell (RMS breathing, mean|vtilt|, mean|htilt|, max|saddle|) of
     intensity mode planes f32[..., 4, Hm, Wm] (VisionEngine.swift:273-295).
 
     Cells are contiguous 1/16 slices of the flattened ROTATED buffer (the
     reference quirk, cfg.linear_cell_grads): column bands when Wm % 16 == 0,
-    else an explicit rotation with the remainder in the last cell.
+    else an explicit rotation with the remainder in the last cell.  With
+    ``linear_cell_grads=False`` the cells are the histogram's 4x4 spatial
+    tiles (:func:`_spatial_cell_stats`).
     Returns f32[..., cells, 4].
     """
     if not cfg.linear_cell_grads:
-        raise not_ported("linear_cell_grads=False (the spatial gradient "
-                         "path)")
+        return _spatial_cell_stats(modes, cfg)
     hm, wm = modes.shape[-2:]
     lead = modes.shape[:-3]
     cells = cfg.num_cells
@@ -346,33 +433,89 @@ def cell_gradient_stats_planes(modes, cfg: AuralizerConfig):
 # Full vision step
 # ---------------------------------------------------------------------------
 
-def frame_mip_planes(frames, cfg: AuralizerConfig):
-    """RGB frames (T, H, W, 3), u8 or f32 in [0, 1] -> f32 mip planes
-    (T, 3, H >> l, W >> l).  u8 frames go through kernel K1
-    (:func:`ops.pool_kernel.mip_pool`); the 1/255 folds into its epilogue."""
-    if isinstance(frames, dict):
-        raise not_ported("planar YUV 4:2:0 frames")
-    if cfg.quantize_mips or cfg.quantize_mips_int8:
-        raise not_ported("quantize_mips")
+def yuv420_mip_to_rgb_planes(y, u, v, cfg: AuralizerConfig,
+                             studio_swing: bool = True):
+    """Planar YUV 4:2:0 frames -> RGB mip planes: u8 y (..., H, W), u and v
+    (..., H/2, W/2) -> f32 (..., 3, H >> l, W >> l) in [0, 1].
+
+    The box filter commutes with the affine BT.601 transform, so Y pools
+    at ``mip_level`` and the chroma at ``mip_level - 1`` first (kernel K1's
+    planar entry: one launch for Y, one for U and V together), and the
+    colour conversion runs on the mips.  Each scale folds into K1's
+    epilogue; the offsets are separate adds, the chroma mips are cropped
+    to the luma's size, and the conversion is written as separate ops
+    (never a fused multiply-add), as eager JAX computes it.
+    """
     level = cfg.mip_level
-    if frames.dtype == torch.uint8 and 1 <= level <= 7:
+    if level < 1:
+        raise ValueError(
+            f"the planar-YUV ingest path pools half-resolution chroma at "
+            f"mip level-1 and so requires mip_level >= 1 (got {level}); "
+            f"convert to RGB on the host (io.yuv420_to_rgb) for mip_level=0")
+    if studio_swing:
+        y_scale, y_off = 1.0 / 219.0, -16.0 / 219.0
+        c_scale, c_off = 1.0 / 224.0, -128.0 / 224.0
+    else:
+        y_scale, y_off = 1.0 / 255.0, 0.0
+        c_scale, c_off = 1.0 / 255.0, -128.0 / 255.0
+    y_off, c_off = float(np.float32(y_off)), float(np.float32(c_off))
+    my = mip_downsample_planes(y, level, scale=y_scale) + y_off
+    if 1 <= level - 1 <= 7 and u.dtype == torch.uint8:
+        mu, mv = pool_kernel.mip_pool_planes(u.contiguous(), level - 1,
+                                             c_scale, second=v.contiguous())
+    else:
+        mu = mip_downsample_planes(u, level - 1, scale=c_scale)
+        mv = mip_downsample_planes(v, level - 1, scale=c_scale)
+    hm, wm = my.shape[-2:]
+    mu = mu[..., :hm, :wm] + c_off
+    mv = mv[..., :hm, :wm] + c_off
+    r = my + float(np.float32(1.402)) * mv
+    g = my - float(np.float32(0.344136)) * mu \
+        - float(np.float32(0.714136)) * mv
+    b = my + float(np.float32(1.772)) * mu
+    return torch.clamp(torch.stack([r, g, b], dim=-3), 0.0, 1.0)
+
+
+def frame_mip_planes(frames, cfg: AuralizerConfig):
+    """Frames -> f32 mip planes (T, 3, H >> l, W >> l): RGB frames
+    (T, H, W, 3), u8 or f32 in [0, 1], or a dict ``{"y", "u", "v"}`` of
+    planar u8 YUV 4:2:0 (T, H, W) and (T, H/2, W/2)
+    (:func:`yuv420_mip_to_rgb_planes`).  u8 RGB frames go through kernel
+    K1 (:func:`ops.pool_kernel.mip_pool`), the 1/255 folded into its
+    epilogue, unless ``quantize_mips`` asks for the 8-bit chain."""
+    if isinstance(frames, dict):
+        return yuv420_mip_to_rgb_planes(frames["y"], frames["u"],
+                                        frames["v"], cfg)
+    level = cfg.mip_level
+    if (frames.dtype == torch.uint8 and 1 <= level <= 7
+            and not cfg.quantize_mips):
         return pool_kernel.mip_pool(frames, level, scale=1.0 / 255.0)
     scale = 1.0 / 255.0 if frames.dtype == torch.uint8 else 1.0
     return mip_downsample_planes(frames.permute(0, 3, 1, 2), level,
-                                 scale=scale)
+                                 cfg.quantize_mips, scale=scale,
+                                 quantize_int8=cfg.quantize_mips_int8)
+
+
+def _rot_pack(modes):
+    """(..., 4, hm, wm) mode planes -> the rotated (..., wm, hm, 4) pack of
+    the Metal debug buffers."""
+    return torch.rot90(modes, k=-1, dims=(-2, -1)).movedim(-3, -1)
 
 
 def frame_stats(frames, cfg: AuralizerConfig,
                 compute_debug_maps: bool = False):
-    """The stateless vision pass over a chunk: frames (T, H, W, 3) ->
-    (hist f32[T, 16, 360], grads f32[T, 16, 4]).  With
-    ``cfg.use_pallas_vision`` and a mip the kernel takes, everything after
-    the mip pool is kernel K3 (:func:`ops.vision_kernel.vision_stats`),
-    else the stages below."""
-    if compute_debug_maps:
-        raise not_ported("the vision debug maps")
+    """The stateless vision pass over a chunk: frames (see
+    :func:`frame_mip_planes`) -> (hist f32[T, 16, 360], grads
+    f32[T, 16, 4]).  With ``cfg.use_pallas_vision`` and a mip the kernel
+    takes, everything after the mip pool is kernel K3
+    (:func:`ops.vision_kernel.vision_stats`), else the stages below.
+
+    ``compute_debug_maps`` bypasses K3, as the JAX package does, and adds a
+    third result, the debug dict: ``histogram``, the rotated
+    (T, wm, hm, 4) mode packs ``hue_map``, ``saturation_map`` and
+    ``intensity_map``, and ``mip_hsi`` (T, hm, wm, 3)."""
     mip = frame_mip_planes(frames, cfg)
-    if cfg.use_pallas_vision:
+    if cfg.use_pallas_vision and not compute_debug_maps:
         # Imported here: ops.vision_kernel imports this module.
         from vaudio_torch.ops import vision_kernel
         if vision_kernel.supports(mip.shape[-2], mip.shape[-1], cfg):
@@ -380,12 +523,34 @@ def frame_stats(frames, cfg: AuralizerConfig,
     h, s, i = rgb_to_hsi_planes(mip[:, 0], mip[:, 1], mip[:, 2],
                                 fast_acos=cfg.fast_hue_acos)
     hist = hue_histogram_planes(h, s, i, cfg)
-    grads = cell_gradient_stats_planes(feature_stencil_plane(i), cfg)
-    return hist, grads
+    imodes = feature_stencil_plane(i)
+    grads = cell_gradient_stats_planes(imodes, cfg)
+    if not compute_debug_maps:
+        return hist, grads
+    return hist, grads, {
+        "histogram": hist,
+        "hue_map": _rot_pack(feature_stencil_plane(h)),
+        "saturation_map": _rot_pack(feature_stencil_plane(s)),
+        "intensity_map": _rot_pack(imodes),
+        "mip_hsi": torch.stack([h, s, i], dim=-1),
+    }
 
 
-def extract_features(frames, prev_hues, mixing, cfg: AuralizerConfig):
-    """The full vision pass of one frame (H, W, 3) -> (hues i32[16],
-    grads f32[16, 4])."""
-    hist, grads = frame_stats(frames[None], cfg)
-    return update_hues(hist[0], prev_hues, mixing, cfg), grads[0]
+def _one_frame(frame):
+    """One frame (an array, or a dict of planes) as a batch of one."""
+    if isinstance(frame, dict):
+        return {k: v[None] for k, v in frame.items()}
+    return frame[None]
+
+
+def extract_features(frame, prev_hues, mixing, cfg: AuralizerConfig,
+                     compute_debug_maps: bool = False):
+    """The full vision pass of one frame (H, W, 3), or a dict of its YUV
+    planes -> (hues i32[16], grads f32[16, 4]); with
+    ``compute_debug_maps`` also the frame's debug dict (see
+    :func:`frame_stats`)."""
+    out = frame_stats(_one_frame(frame), cfg, compute_debug_maps)
+    hues = update_hues(out[0][0], prev_hues, mixing, cfg)
+    if not compute_debug_maps:
+        return hues, out[1][0]
+    return hues, out[1][0], {k: v[0] for k, v in out[2].items()}
