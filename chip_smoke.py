@@ -12,13 +12,16 @@ Phases, one line each; any failure exits non-zero:
 2. build the CUDA kernels from ``vaudio_torch/csrc`` (one ``nvcc`` per
    source, all at once, into ``build/vaudio_torch/``);
 3. K1, the u8 mip pool, against its plain PyTorch version on
-   u8 [8, 1080, 1920, 3] frames at mip 3: integer block sums exact, f32
-   within 1 ulp; both times from CUDA events;
-4. K1's planar entry against the same plain version on one 1080p YUV 4:2:0
-   chunk, Y [64, 1080, 1920] at mip 3 and U, V [64, 540, 960] at mip 2 (one
-   launch for the pair): sums exact, the studio-swing scales within 1 ulp,
-   an odd crop at levels 1 and 7, the T=1 and two-call bit checks; times of
-   one YUV dispatch at T=64 and T=1 and their share of the bound;
+   u8 [T, 1080, 1920, 3] frames at mip 3, T = 1, 8 and 64: integer block
+   sums exact, the 1/255 mips bit for bit, an odd crop at levels 1 and 7;
+   both times and the share of the bound at each T;
+4. K1's planar and YUV entries on one 1080p YUV 4:2:0 chunk, Y
+   [64, 1080, 1920] at mip 3 and U, V [64, 540, 960] at mip 2: the planar
+   entry's sums exact and its studio-swing mips bit for bit; the YUV entry
+   (one launch from the planes to the clamped RGB mips) bit for bit
+   against its plain version, on the chunk and on an odd crop at levels
+   1-7; the T=1 and two-call bit checks; times of one YUV dispatch and of
+   the planar entry on Y at T=64 and T=1 and their share of the bound;
 5. K2, the Hann-peak contraction, against its plain version at T=64,
    F=2047, NP=496, K=2 and 4, at T=8, K=4 (the chunked live path's) and K2'
    at T=1: within 1e-5; frames 0, T/2 and T-1 of the T=64 call equal to
@@ -28,8 +31,9 @@ Phases, one line each; any failure exits non-zero:
    channels=2), device="cuda").sonify`` on 64 structured u8 1080p frames,
    then on the same kind of clip as planar I420 YUV dicts (BT.601 studio
    swing, ``tests/torch_frames.py``), with the kernels' launch counts reset
-   before and read after (K1 or its planar entry, at most 3 launches a
-   chunk, K2 and K4, which runs once for the chunk of 64); each clip
+   before and read after (K1: the interleaved entry, or exactly one launch
+   of the YUV entry a chunk and none of the others; K2 and K4, which runs
+   once for the chunk of 64); each clip
    cropped to 256x256 through the port on the card and on the CPU (equal
    hue sequences, PCM within 1e-4);
 7. K3, the vision epilogue, against its plain version on the mips of
@@ -46,8 +50,9 @@ Phases, one line each; any failure exits non-zero:
 9. the live path: ``Auralizer(source=frames, config=..., device="cuda")
    .run_until_exhausted()`` on 64 structured 1080p frames, RGB and then YUV
    dicts, with ``use_pallas`` and ``use_pallas_vision``, per frame and in
-   chunks of 8, the counts reset before each run and read after it (K1 or
-   its planar entry, at most 3 a dispatch, and K2-K4 in both; K4 64 times
+   chunks of 8, the counts reset before each run and read after it (K1:
+   the interleaved entry, or exactly one launch of the YUV entry a
+   dispatch and none of the others; K2-K4 in both; K4 64 times
    per frame, 8 times in chunks); the pulled PCM equal to ``run_offline``
    on the card; a 256x256 crop through the same configuration on the card
    and on the CPU (equal hues, PCM within 1e-4); YUV's ms/frame beside
@@ -215,6 +220,7 @@ def kernel_modules() -> dict:
                                   vision_kernel)
     return {"mip_pool_u8": (pool_kernel, "launches"),
             "mip_pool_planes_u8": (pool_kernel, "planar_launches"),
+            "mip_pool_yuv420_u8": (pool_kernel, "yuv_launches"),
             "hann_peak_weighted_sum": (spectrum_kernel, "launches"),
             "vision_stats": (vision_kernel, "launches"),
             "agc_overlap_add": (audio_kernel, "launches")}
@@ -256,7 +262,7 @@ def as_source(clip):
 
 def pool_of(clip) -> str:
     """The K1 entry a clip's frames go through."""
-    return "mip_pool_planes_u8" if isinstance(clip, dict) else "mip_pool_u8"
+    return "mip_pool_yuv420_u8" if isinstance(clip, dict) else "mip_pool_u8"
 
 
 def live_config():
@@ -290,79 +296,112 @@ def phase_build(smi: str) -> None:
         + " ; ".join(regs))
 
 
-def phase_k1(smi: str) -> dict:
+def share(e: dict) -> str:
+    return f"share of the bound {100 * e['bound_ms'] / e['device_ms']:.1f}%"
+
+
+# Integer and f32 operations per K1 output texel beyond the block sum: the
+# epilogue (2); the YUV entry's per RGB texel (three outputs): Y's epilogue
+# and offset (3), U's and V's (6), BT.601 (8) and the clamps (6).
+K1_EPILOGUE_OPS = 2
+K1_YUV_TEXEL_OPS = 23
+
+
+def phase_k1(smi: str) -> list:
+    """K1's interleaved entry on 1080p u8 RGB at T = 1, 8 and 64 (the live
+    per-frame step, the live chunks of 8, the offline chunk): integer block
+    sums exact and the 1/255 mips equal to the plain version bit for bit;
+    an odd crop at levels 1 and 7; both times, the bound and its share."""
     from vaudio_torch.ops import pool_kernel as pk
-    T, H, W = LIVE_CHUNK, 1080, 1920
+    H, W = 1080, 1920
     gen = torch.Generator(device="cuda").manual_seed(0)
-    frames = torch.randint(0, 256, (T, H, W, 3), generator=gen,
-                           device="cuda", dtype=torch.uint8)
-    planes = frames.permute(0, 3, 1, 2)
-    # scale = 4^l makes gain 1: the outputs ARE the integer block sums.
-    k2 = float(4 ** MIP)
-    sums = pk.mip_pool(frames, MIP, scale=k2)
-    sums_plain = pk.mip_pool_plain(planes, MIP, scale=k2)
-    if not torch.equal(sums, sums_plain):
-        fail("K1 integer block sums differ from the plain version")
-    got = pk.mip_pool(frames, MIP, scale=1.0 / 255.0)
-    ref = pk.mip_pool_plain(planes, MIP, scale=1.0 / 255.0)
-    torch.cuda.synchronize()
-    if got.shape != (T, 3, H >> MIP, W >> MIP):
-        fail(f"K1 output shape {tuple(got.shape)}")
-    ulps = int((got.view(torch.int32) - ref.view(torch.int32)).abs().max())
-    err = float((got - ref).abs().max())
-    if ulps > 1:
-        fail(f"K1 differs from the plain version by {ulps} ulp")
-    out_n = T * 3 * (H >> MIP) * (W >> MIP)
-    e = entry("mip_pool_u8", "vaudio_torch/csrc/pool_kernel.cu",
-              "vaudio/ops/pool_kernel.py:130", err,
-              lambda: pk.mip_pool(frames, MIP, scale=1.0 / 255.0),
-              lambda: pk.mip_pool_plain(planes, MIP, 1.0 / 255.0),
-              nbytes=T * H * W * 3 + 4 * out_n,
-              ops=T * H * W * 3 + 2 * out_n, path="live_chunk")
-    say(f"K1 mip_pool u8 [{T},{H},{W},3] mip {MIP}: sums exact, "
-        f"max {ulps} ulp, max_abs_err {err:.3e}; {timing(e)} ({smi})")
-    return e
+    every = torch.randint(0, 256, (CHUNK_T, H, W, 3), generator=gen,
+                          device="cuda", dtype=torch.uint8)
+    odd = every[:3, :1079, :1917].contiguous()
+    for level in (1, 7):
+        if not bits_equal(pk.mip_pool(odd, level, 1.0 / 255.0),
+                          pk.mip_pool_plain(odd.permute(0, 3, 1, 2), level,
+                                            1.0 / 255.0)):
+            fail(f"K1 odd crop 3x1079x1917 level {level} differs from the "
+                 f"plain version")
+    entries = []
+    for T, path in ((1, "live_frame"), (LIVE_CHUNK, "live_chunk"),
+                    (CHUNK_T, "offline")):
+        frames = every[:T].contiguous()
+        planes = frames.permute(0, 3, 1, 2)
+        # scale = 4^l makes gain 1: the outputs ARE the integer block sums.
+        k2 = float(4 ** MIP)
+        if not torch.equal(pk.mip_pool(frames, MIP, scale=k2),
+                           pk.mip_pool_plain(planes, MIP, scale=k2)):
+            fail(f"K1 T={T}: integer block sums differ from the plain "
+                 f"version")
+        got = pk.mip_pool(frames, MIP, scale=1.0 / 255.0)
+        ref = pk.mip_pool_plain(planes, MIP, scale=1.0 / 255.0)
+        torch.cuda.synchronize()
+        if got.shape != (T, 3, H >> MIP, W >> MIP):
+            fail(f"K1 output shape {tuple(got.shape)}")
+        if not bits_equal(got, ref):
+            fail(f"K1 T={T}: the 1/255 mips differ from the plain version "
+                 f"by {float((got - ref).abs().max()):.3e}")
+        err = float((got - ref).abs().max())
+        out_n = T * 3 * (H >> MIP) * (W >> MIP)
+        e = entry("mip_pool_u8" + ("" if T == LIVE_CHUNK else f"_t{T}"),
+                  "vaudio_torch/csrc/pool_kernel.cu",
+                  "vaudio/ops/pool_kernel.py:130", err,
+                  lambda: pk.mip_pool(frames, MIP, scale=1.0 / 255.0),
+                  lambda: pk.mip_pool_plain(planes, MIP, 1.0 / 255.0),
+                  nbytes=T * H * W * 3 + 4 * out_n,
+                  ops=T * H * W * 3 + K1_EPILOGUE_OPS * out_n, path=path)
+        say(f"K1 mip_pool u8 [{T},{H},{W},3] mip {MIP}: sums exact, equal "
+            f"to the plain version bit for bit; odd crop 3x1079x1917 at "
+            f"levels 1 and 7 equal; {timing(e)}; {share(e)} ({smi})")
+        entries.append(e)
+    return entries
 
 
-# The studio-swing scales of the YUV mips (vision/features.py).
+# The studio-swing scales of the YUV mips (ops/pool_kernel.yuv420_scales).
 Y_SCALE, C_SCALE = 1.0 / 219.0, 1.0 / 224.0
 
 
-def k1_planar_check(name: str, planes, level: int, scale: float,
-                    second=None) -> float:
+def k1_planar_check(name: str, planes, level: int, scale: float) -> float:
     """Fail unless K1's planar entry gives the plain version's integer
-    block sums exactly (scale 4^l) and is within 1 ulp at ``scale``, the
-    pair form equal to two single calls; returns the max abs error."""
+    block sums exactly (scale 4^l) and its mips at ``scale`` bit for bit;
+    returns the max abs error."""
     from vaudio_torch.ops import pool_kernel as pk
     k = float(4 ** level)
-    err = 0.0
-    for x in (planes,) if second is None else (planes, second):
-        if not torch.equal(pk.mip_pool_planes(x, level, k),
-                           pk.mip_pool_plain(x, level, k)):
-            fail(f"{name}: integer block sums differ from the plain version")
-    got = pk.mip_pool_planes(planes, level, scale, second=second)
-    got = (got,) if second is None else got
-    for g, x in zip(got, (planes, second)):
-        ref = pk.mip_pool_plain(x, level, scale)
-        if g.shape != ref.shape:
-            fail(f"{name}: output shape {tuple(g.shape)}")
-        ulps = int((g.view(torch.int32) - ref.view(torch.int32)).abs().max())
-        if ulps > 1:
-            fail(f"{name}: differs from the plain version by {ulps} ulp")
-        if second is not None and not torch.equal(
-                g, pk.mip_pool_planes(x, level, scale)):
-            fail(f"{name}: the pair launch differs from a single call")
-        err = max(err, float((g - ref).abs().max()))
-    return err
+    if not torch.equal(pk.mip_pool_planes(planes, level, k),
+                       pk.mip_pool_plain(planes, level, k)):
+        fail(f"{name}: integer block sums differ from the plain version")
+    got = pk.mip_pool_planes(planes, level, scale)
+    ref = pk.mip_pool_plain(planes, level, scale)
+    if not bits_equal(got, ref):
+        fail(f"{name}: differs from the plain version (shape "
+             f"{tuple(got.shape)})")
+    return float((got - ref).abs().max())
+
+
+def k1_yuv_check(name: str, y, u, v, level: int) -> None:
+    """Fail unless K1's YUV entry equals its plain version bit for bit."""
+    from vaudio_torch.ops import pool_kernel as pk
+    got = pk.mip_pool_yuv420(y, u, v, level)
+    ref = pk.mip_pool_yuv420_plain(y, u, v, level)
+    if not bits_equal(got, ref):
+        fail(f"{name}: differs from the plain version (shape "
+             f"{tuple(got.shape)}, max {float((got - ref).abs().max()):.3e})")
 
 
 def phase_k1_planar(smi: str) -> list:
-    """K1's planar entry on a 1080p YUV 4:2:0 chunk: Y [64,1080,1920] at
-    mip 3 (one launch) and U, V [64,540,960] at mip 2 (one launch for the
-    pair), exact sums and within 1 ulp at the studio-swing scales; an odd
-    crop at levels 1 and 7; frames 0, T/2, T-1 against T=1 calls and two
-    calls, bit for bit.  Entries: one YUV dispatch (both launches) at T=64
-    (the offline chunk) and T=1 (the live per-frame step)."""
+    """K1's planar and YUV entries on a 1080p YUV 4:2:0 chunk, Y
+    [64,1080,1920] at mip 3 and U, V [64,540,960] at mip 2.  The planar
+    entry: sums exact and the studio-swing mips equal to the plain version,
+    on each plane and on an odd crop at levels 1 and 7.  The YUV entry (one
+    launch to the clamped RGB mips): equal to its plain version bit for
+    bit, on the chunk and on an odd crop at levels 1 (unpooled chroma) to
+    7.  Both: frames 0, T/2, T-1 against T=1 calls and two calls, bit for
+    bit.  Timed at T=64 (the offline chunk) and T=1 (the live per-frame
+    step): one YUV dispatch through the YUV entry (the listed entries) and
+    the planar entry on the Y planes alone (printed; no main path launches
+    it since the YUV entry took the YUV dispatch)."""
     from vaudio_torch.ops import pool_kernel as pk
     gen = torch.Generator(device="cuda").manual_seed(1)
 
@@ -374,41 +413,54 @@ def phase_k1_planar(smi: str) -> list:
     y, u, v = planes(T, H, W), planes(T, H // 2, W // 2), \
         planes(T, H // 2, W // 2)
     err = max(k1_planar_check("K1 planar Y", y, MIP, Y_SCALE),
-              k1_planar_check("K1 planar U+V", u, MIP - 1, C_SCALE,
-                              second=v))
+              k1_planar_check("K1 planar U", u, MIP - 1, C_SCALE),
+              k1_planar_check("K1 planar V", v, MIP - 1, C_SCALE))
     odd = y[:3, :1079, :1917].contiguous()
+    odd_c = [x[:3, :540, :959].contiguous() for x in (u, v)]
     for level in (1, 7):
         k1_planar_check(f"K1 planar odd crop level {level}", odd, level,
                         Y_SCALE)
+    k1_yuv_check("K1 YUV", y, u, v, MIP)
+    for level in range(1, 8):
+        k1_yuv_check(f"K1 YUV odd crop 3x1079x1917 level {level}", odd,
+                     *odd_c, level)
     check_batch_independent(
         "K1 planar Y", lambda x: (pk.mip_pool_planes(x, MIP, Y_SCALE),),
         (y,), T)
     check_batch_independent(
-        "K1 planar U+V", lambda a, b: pk.mip_pool_planes(
-            a, MIP - 1, C_SCALE, second=b), (u, v), T)
+        "K1 YUV", lambda *p: (pk.mip_pool_yuv420(*p, MIP),), (y, u, v), T)
     entries = []
     for n, path in ((T, "offline_yuv"), (1, "live_yuv_frame")):
         yn, un, vn = (x[:n].contiguous() for x in (y, u, v))
-        out_n = n * 3 * (H >> MIP) * (W >> MIP)
-        e = entry("mip_pool_planes_u8" + ("" if n == T else f"_t{n}"),
-                  "vaudio_torch/csrc/pool_kernel.cu",
-                  "vaudio/ops/pool_kernel.py:130", err,
-                  lambda: (pk.mip_pool_planes(yn, MIP, Y_SCALE),
-                           pk.mip_pool_planes(un, MIP - 1, C_SCALE,
-                                              second=vn)),
-                  lambda: (pk.mip_pool_plain(yn, MIP, Y_SCALE),
-                           pk.mip_pool_plain(un, MIP - 1, C_SCALE),
-                           pk.mip_pool_plain(vn, MIP - 1, C_SCALE)),
-                  nbytes=n * H * W * 3 // 2 + 4 * out_n,
-                  ops=n * H * W * 3 // 2 + 2 * out_n, path=path)
-        say(f"K1 mip_pool_planes u8 one YUV 4:2:0 dispatch T={n}: Y "
-            f"[{n},{H},{W}] mip {MIP} + U,V [{n},{H // 2},{W // 2}] mip "
-            f"{MIP - 1} (2 launches): sums exact, within 1 ulp, max_abs_err "
+        out_n = n * (H >> MIP) * (W >> MIP)        # texels of one plane
+        planar = entry(
+            "mip_pool_planes_u8", "vaudio_torch/csrc/pool_kernel.cu",
+            "vaudio/ops/pool_kernel.py:130", err,
+            lambda: pk.mip_pool_planes(yn, MIP, Y_SCALE),
+            lambda: pk.mip_pool_plain(yn, MIP, Y_SCALE),
+            nbytes=n * H * W + 4 * out_n,
+            ops=n * H * W + K1_EPILOGUE_OPS * out_n, path=path)
+        say(f"K1 mip_pool_planes u8 Y [{n},{H},{W}] mip {MIP}: sums exact, "
+            f"U and V at mip {MIP - 1} too, equal bit for bit, max_abs_err "
             f"{err:.3e}; odd crop 3x1079x1917 at levels 1 and 7; frames 0, "
             f"T/2, T-1 equal to T=1 calls and two calls equal, bit for bit; "
-            f"{timing(e)}; share of the bound "
-            f"{100 * e['bound_ms'] / e['device_ms']:.1f}% ({smi})")
-        entries.append(e)
+            f"{timing(planar)}; {share(planar)} ({smi})")
+        fused = entry(
+            "mip_pool_yuv420_u8" + ("" if n == T else f"_t{n}"),
+            "vaudio_torch/csrc/pool_kernel.cu",
+            "vaudio/ops/pool_kernel.py:130", 0.0,
+            lambda: pk.mip_pool_yuv420(yn, un, vn, MIP),
+            lambda: pk.mip_pool_yuv420_plain(yn, un, vn, MIP),
+            nbytes=n * H * W * 3 // 2 + 4 * 3 * out_n,
+            ops=n * H * W * 3 // 2 + K1_YUV_TEXEL_OPS * out_n, path=path)
+        say(f"K1 mip_pool_yuv420 u8 one YUV 4:2:0 dispatch T={n}: Y "
+            f"[{n},{H},{W}] mip {MIP} + U,V [{n},{H // 2},{W // 2}] mip "
+            f"{MIP - 1} in 1 launch to the clamped RGB mips "
+            f"[{n},3,{H >> MIP},{W >> MIP}]: equal to the plain version bit "
+            f"for bit, and on the odd crop at levels 1-7; frames 0, T/2, T-1 "
+            f"equal to T=1 calls and two calls equal, bit for bit; "
+            f"{timing(fused)}; {share(fused)} ({smi})")
+        entries.append(fused)
     return entries
 
 
@@ -518,9 +570,10 @@ def phase_offline(clip, smi: str):
     if launches["agc_overlap_add"] != chunks:
         fail(f"offline: K4 launched {launches['agc_overlap_add']} times for "
              f"{T} frames in chunks of {CHUNK_T}")
-    if yuv and (launches[pool] > 3 * chunks or launches["mip_pool_u8"]):
-        fail(f"offline YUV: more than 3 planar K1 launches a chunk, or the "
-             f"interleaved K1 launched: {launches}")
+    if yuv and (launches[pool] != chunks or launches["mip_pool_u8"]
+                or launches["mip_pool_planes_u8"]):
+        fail(f"offline YUV: not exactly 1 K1 launch a chunk (the YUV "
+             f"entry's), or another K1 entry launched: {launches}")
     t1 = time.perf_counter()
     if yuv:                                         # pageable copies
         dev_clip = {k: torch.as_tensor(v, device="cuda")
@@ -758,11 +811,12 @@ def phase_live(frames, smi: str):
         if launches["agc_overlap_add"] != LIVE_T // chunk:
             fail(f"live {what}chunk_frames={chunk}: K4 launched "
                  f"{launches['agc_overlap_add']} times in {LIVE_T} frames")
-        if yuv and (launches[pool] > 3 * m["dispatches"]
-                    or launches["mip_pool_u8"]):
-            fail(f"live YUV chunk_frames={chunk}: more than 3 planar K1 "
-                 f"launches a dispatch, or the interleaved K1 launched: "
-                 f"{launches}, {m['dispatches']} dispatches")
+        if yuv and (launches[pool] != m["dispatches"]
+                    or launches["mip_pool_u8"]
+                    or launches["mip_pool_planes_u8"]):
+            fail(f"live YUV chunk_frames={chunk}: not exactly 1 K1 launch a "
+                 f"dispatch (the YUV entry's), or another K1 entry "
+                 f"launched: {launches}, {m['dispatches']} dispatches")
         if m["frames_processed"] != LIVE_T or m["dropped_frames"]:
             fail(f"live {what}chunk_frames={chunk}: {m}")
         # The stream dispatches whole chunks and single-steps the rest.
@@ -893,8 +947,9 @@ def phase_debug(frames: np.ndarray, smi: str) -> None:
 
 def kind_of(name: str) -> str:
     """The kind of a device event, for the profile's table."""
-    for kernel in ("mip_pool_u8", "mip_pool_planes", "hann_peak_weighted_sum",
-                   "vision_stats", "agc_overlap_add"):
+    for kernel in ("mip_pool_u8", "mip_pool_planes", "mip_pool_yuv420",
+                   "hann_peak_weighted_sum", "vision_stats",
+                   "agc_overlap_add"):
         if kernel in name:
             return kernel
     if name.startswith("Memcpy"):
@@ -1006,7 +1061,7 @@ def main() -> None:
     say(f"frames: {LIVE_T} structured YUV 4:2:0 frames 1080x1920 (I420, "
         f"BT.601 studio swing) made in {time.perf_counter() - t0:.1f} s on "
         f"the host ({smi})")
-    kernels = [phase_k1(smi), *phase_k1_planar(smi), *phase_k2(smi)]
+    kernels = [*phase_k1(smi), *phase_k1_planar(smi), *phase_k2(smi)]
     counts, ms = {}, {}
     counts["offline"], ms["offline"] = phase_offline(frames[:CHUNK_T], smi)
     counts["offline_yuv"], ms["offline_yuv"] = phase_offline(yuv, smi)

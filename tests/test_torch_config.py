@@ -13,6 +13,7 @@ import vaudio_torch
 from vaudio_torch import config as port_config
 from vaudio_torch.api import Auralizer
 from vaudio_torch.runtime import chunked, step
+from vaudio_torch.synth import spectrum
 
 CONFIGS = [
     {},
@@ -98,3 +99,28 @@ def test_entry_points_without_a_card_raise(monkeypatch):
         chunked.run_offline_batched(frames, cfg)
     with pytest.raises(RuntimeError, match="is_available"):
         step.make_step(cfg)
+
+
+BARE_CALLS = {
+    "init_carry": lambda cfg: step.init_carry(cfg),
+    "carry_from_numpy": lambda cfg: step.carry_from_numpy(
+        step.carry_to_numpy(step.init_carry(cfg, "cpu"))),
+    "SynthConstants.create": lambda cfg: spectrum.SynthConstants.create(cfg),
+    "SynthConstants.from_numpy": lambda cfg: spectrum.SynthConstants
+    .from_numpy(**spectrum.SynthConstants.create(cfg, "cpu").to_numpy()),
+    "live_pan_gains": lambda cfg: spectrum.live_pan_gains(cfg, 0.5),
+    "live_pan_from_params": lambda cfg: spectrum.live_pan_from_params(
+        cfg, {"stereo_width": 0.5}),
+}
+
+
+@pytest.mark.parametrize("name", sorted(BARE_CALLS))
+def test_the_frame_step_surface_without_a_card_raises(monkeypatch, name):
+    """The pieces a caller of frame_step builds itself (the carry, the
+    synthesis constants, the live pan) run on the card unless the CPU is
+    asked for: called bare without a card they raise the port's error,
+    never hand back CPU tensors."""
+    cfg = port_config.AuralizerConfig(channels=2)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match='pass device="cpu"'):
+        BARE_CALLS[name](cfg)

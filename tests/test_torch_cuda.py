@@ -42,7 +42,7 @@ def gen():
                                          (1, 37, 64, 1), (2, 64, 64, 3)])
 def test_k1_matches_plain(dev, gen, T, H, W, level):
     """Integer block sums exact (scale 4^l); the 1/255 output equal to the
-    plain version's separately rounded multiply and add, within 1 ulp."""
+    plain version's separately rounded multiply and add, bit for bit."""
     frames = torch.as_tensor(gen.integers(0, 256, (T, H, W, 3),
                                           dtype=np.uint8), device=dev)
     planes = frames.permute(0, 3, 1, 2)
@@ -52,8 +52,7 @@ def test_k1_matches_plain(dev, gen, T, H, W, level):
     got = pool_kernel.mip_pool(frames, level, 1 / 255.0)
     ref = pool_kernel.mip_pool_plain(planes, level, 1 / 255.0)
     assert got.shape == (T, 3, H >> level, W >> level)
-    ulps = (got.view(torch.int32) - ref.view(torch.int32)).abs().max()
-    assert int(ulps) <= 1
+    assert bits_equal(got, ref)
 
 
 @pytest.mark.parametrize("K", [2, 4])
@@ -473,10 +472,6 @@ def test_k4_chunk_wrapper_checks_inputs(dev):
 # K1's planar entry, the YUV path and the config flags on the card
 # ---------------------------------------------------------------------------
 
-def ulps(a, b) -> int:
-    return int((a.view(torch.int32) - b.view(torch.int32)).abs().max())
-
-
 PLANAR_CASES = ([(64, 1080, 1920, 3), (64, 540, 960, 2), (1, 1080, 1920, 3),
                  (3, 61, 45, 2), (2, 37, 129, 1)]
                 + [(2, 257, 389, level) for level in range(1, 8)])
@@ -485,21 +480,17 @@ PLANAR_CASES = ([(64, 1080, 1920, 3), (64, 540, 960, 2), (1, 1080, 1920, 3),
 @pytest.mark.parametrize("N,H,W,level", PLANAR_CASES)
 def test_k1_planar_matches_plain(dev, gen, N, H, W, level):
     """mip_pool_planes on u8 (N, H, W): the integer block sums exact
-    (scale 4^l); the studio-swing scales 1/219 and 1/224 within 1 ulp of
-    the plain version; a pair of batches in one launch equal to two single
-    calls."""
-    a, b = (torch.as_tensor(gen.integers(0, 256, (N, H, W), dtype=np.uint8),
-                            device=dev) for _ in range(2))
+    (scale 4^l); the studio-swing scales 1/219 and 1/224 equal to the
+    plain version bit for bit."""
+    a = torch.as_tensor(gen.integers(0, 256, (N, H, W), dtype=np.uint8),
+                        device=dev)
     k = float(4 ** level)
     assert torch.equal(pool_kernel.mip_pool_planes(a, level, k),
                        pool_kernel.mip_pool_plain(a, level, k))
     for scale in (1 / 219.0, 1 / 224.0):
         got = pool_kernel.mip_pool_planes(a, level, scale)
         assert got.shape == (N, H >> level, W >> level)
-        assert ulps(got, pool_kernel.mip_pool_plain(a, level, scale)) <= 1
-        pa, pb = pool_kernel.mip_pool_planes(a, level, scale, second=b)
-        assert torch.equal(pa, got)
-        assert torch.equal(pb, pool_kernel.mip_pool_planes(b, level, scale))
+        assert bits_equal(got, pool_kernel.mip_pool_plain(a, level, scale))
 
 
 def test_k1_planar_is_batch_independent(dev, gen):
@@ -515,14 +506,13 @@ def test_k1_planar_is_batch_independent(dev, gen):
 
 
 def test_k1_planar_counts_checks_and_never_runs_plain(dev, monkeypatch):
-    """One count per launch (a pair is one launch); bad inputs raise; on a
-    CUDA tensor neither the wrapper nor mip_downsample_planes reaches the
-    plain version."""
+    """One count per launch; bad inputs raise; on a CUDA tensor neither
+    the wrapper nor mip_downsample_planes reaches the plain version."""
     monkeypatch.setattr(pool_kernel, "mip_pool_plain", None)
     y = torch.zeros((2, 64, 64), dtype=torch.uint8, device=dev)
     before = pool_kernel.planar_launches
     pool_kernel.mip_pool_planes(y, 3)
-    pool_kernel.mip_pool_planes(y, 2, second=y)
+    pool_kernel.mip_pool_planes(y, 2)
     features.mip_downsample_planes(y, 1, scale=1 / 255.0)
     assert pool_kernel.planar_launches - before == 3
     for bad in (y.float(), y[:, :, ::2], y[0, 0]):
@@ -530,6 +520,115 @@ def test_k1_planar_counts_checks_and_never_runs_plain(dev, monkeypatch):
             pool_kernel.mip_pool_planes(bad, 1)
     with pytest.raises(ValueError, match="does not fit"):
         pool_kernel.mip_pool_planes(y, 7)
+
+
+def offset_view(x, offset: int):
+    """A contiguous copy of ``x`` that starts ``offset`` bytes into a
+    buffer on its device (so its rows are not 16-byte aligned for an odd
+    offset)."""
+    buf = torch.empty(x.numel() + offset, dtype=x.dtype, device=x.device)
+    view = buf[offset:].view(x.shape)
+    view.copy_(x)
+    return view
+
+
+@pytest.mark.parametrize("H,W,level", [(1079, 1917, 3), (600, 1000, 3),
+                                       (64, 37, 1), (257, 389, 7),
+                                       (16, 13000, 3), (16, 13008, 3)])
+def test_k1_unaligned_rows_match_plain(dev, gen, H, W, level):
+    """The interleaved and planar entries on rows that are not 16-byte
+    aligned (W and 3 W not multiples of 16, a base 3 bytes into a buffer)
+    and on rows wide enough to take several column tiles: equal to the
+    plain version bit for bit."""
+    frames = torch.as_tensor(gen.integers(0, 256, (2, H, W, 3),
+                                          dtype=np.uint8), device=dev)
+    planes = frames[..., 1].contiguous()
+    for offset in (0, 3):
+        f, p = offset_view(frames, offset), offset_view(planes, offset)
+        assert bits_equal(pool_kernel.mip_pool(f, level, 1 / 255.0),
+                          pool_kernel.mip_pool_plain(f.permute(0, 3, 1, 2),
+                                                     level, 1 / 255.0))
+        assert bits_equal(pool_kernel.mip_pool_planes(p, level, 1 / 219.0),
+                          pool_kernel.mip_pool_plain(p, level, 1 / 219.0))
+
+
+def yuv_planes(gen, T, H, W, dev, offset=0):
+    """u8 Y (T, H, W) and U, V (T, ceil(H / 2), ceil(W / 2)) on ``dev``,
+    each ``offset`` bytes into a buffer (:func:`offset_view`)."""
+    c = (T, (H + 1) // 2, (W + 1) // 2)
+    return [offset_view(torch.as_tensor(gen.integers(
+        0, 256, shape, dtype=np.uint8), device=dev), offset)
+        for shape in ((T, H, W), c, c)]
+
+
+YUV_CASES = ([(2, 1080, 1920, 3, True, 0), (1, 1080, 1920, 3, False, 0),
+              (2, 600, 1000, 3, True, 0), (2, 600, 1000, 1, False, 0),
+              (2, 1080, 1920, 3, True, 5), (2, 16, 13000, 3, True, 0),
+              (3, 64, 48, 2, True, 0)]
+             + [(3, 1079, 1917, level, True, 0) for level in range(1, 8)])
+
+
+@pytest.mark.parametrize("T,H,W,level,studio,offset", YUV_CASES)
+def test_k1_yuv_matches_plain(dev, gen, T, H, W, level, studio, offset):
+    """K1's YUV entry, one launch from the planes to the clamped RGB mips,
+    equal bit for bit to its plain version on the card and on the CPU: at
+    1080p, on odd crops at every level (at 1 the chroma is not pooled),
+    widths whose rows are not 16-byte multiples, a base 5 bytes into a
+    buffer, several column tiles (W = 13000), full and studio swing."""
+    y, u, v = yuv_planes(gen, T, H, W, dev, offset)
+    got = pool_kernel.mip_pool_yuv420(y, u, v, level, studio)
+    assert got.shape == (T, 3, H >> level, W >> level)
+    assert bits_equal(got, pool_kernel.mip_pool_yuv420_plain(y, u, v, level,
+                                                             studio))
+    assert bits_equal(got.cpu(), pool_kernel.mip_pool_yuv420(
+        y.cpu(), u.cpu(), v.cpu(), level, studio))
+    assert float(got.min()) >= 0.0 and float(got.max()) <= 1.0
+
+
+def test_k1_yuv_is_batch_independent(dev, gen):
+    """Frames 0, T/2 and T-1 of a 16-frame 1080p call equal T=1 calls (and
+    an unbatched (H, W) call), and two calls equal, bit for bit."""
+    y, u, v = yuv_planes(gen, 16, 1080, 1920, dev)
+    full = pool_kernel.mip_pool_yuv420(y, u, v, 3)
+    assert bits_equal(full, pool_kernel.mip_pool_yuv420(y, u, v, 3))
+    for j in (0, 8, 15):
+        one = pool_kernel.mip_pool_yuv420(
+            *(x[j:j + 1].contiguous() for x in (y, u, v)), 3)
+        assert bits_equal(one, full[j:j + 1])
+    assert bits_equal(pool_kernel.mip_pool_yuv420(y[3], u[3], v[3], 3),
+                      full[3])
+
+
+def k1_counts(before=(0, 0, 0)):
+    """K1's launch counts (YUV, planar, interleaved), less ``before``."""
+    now = (pool_kernel.yuv_launches, pool_kernel.planar_launches,
+           pool_kernel.launches)
+    return tuple(a - b for a, b in zip(now, before))
+
+
+def test_k1_yuv_counts_checks_and_never_runs_plain(dev, monkeypatch):
+    """One count a launch, through the wrapper, yuv420_mip_to_rgb_planes
+    (mip_level 1 too) and frame_mip_planes, and no other K1 entry; on a
+    CUDA tensor no plain version is reached; bad inputs raise."""
+    for name in ("mip_pool_plain", "mip_pool_yuv420_plain",
+                 "rgb_from_yuv_mips"):
+        monkeypatch.setattr(pool_kernel, name, None)
+    y = torch.zeros((2, 64, 64), dtype=torch.uint8, device=dev)
+    c = torch.zeros((2, 32, 32), dtype=torch.uint8, device=dev)
+    before = k1_counts()
+    pool_kernel.mip_pool_yuv420(y, c, c, 3)
+    features.yuv420_mip_to_rgb_planes(y, c, c, AuralizerConfig(mip_level=1))
+    features.frame_mip_planes({"y": y, "u": c, "v": c}, AuralizerConfig())
+    assert k1_counts(before) == (3, 0, 0)
+    for bad in ((y.float(), c, c), (y, c[:, :, ::2], c), (y[:1], c, c)):
+        with pytest.raises(ValueError, match="contiguous"):
+            pool_kernel.mip_pool_yuv420(*bad, 3)
+    for bad in ((y, c[:, :15].contiguous(), c[:, :15].contiguous()),
+                (y, c, c[:, :, :16].contiguous())):
+        with pytest.raises(ValueError, match="do not cover"):
+            pool_kernel.mip_pool_yuv420(*bad, 3)
+    with pytest.raises(ValueError, match="does not fit"):
+        pool_kernel.mip_pool_yuv420(y, c, c, 7)
 
 
 def yuv_head(yuv, start, end):
@@ -540,21 +639,22 @@ def yuv_head(yuv, start, end):
 def test_yuv_path_on_the_card_matches_the_cpu(dev, channels):
     """A 256x256 YUV clip (Y 256^2, U and V 128^2), chunked in chunks of 8
     and per frame, on the card against the CPU: hues equal, PCM within
-    1e-4; two planar K1 launches a dispatch (Y, then U and V together)."""
+    1e-4; one launch of K1's YUV entry a dispatch, and none of its other
+    entries."""
     cfg = AuralizerConfig(channels=channels, use_pallas_vision=True)
     yuv = structured_yuv_frames(20, 12, 256, 256)
-    before = pool_kernel.planar_launches
+    before = k1_counts()
     a_gpu, _, d_gpu = chunked.run_offline_batched(yuv, cfg, chunk=8,
                                                   debug=True, device=dev)
-    assert pool_kernel.planar_launches - before == 2 * 2
+    assert k1_counts(before) == (2, 0, 0)
     a_cpu, _, d_cpu = chunked.run_offline_batched(yuv, cfg, chunk=8,
                                                   debug=True, device="cpu")
     assert torch.equal(d_gpu["hues"].cpu(), d_cpu["hues"])
     assert float((a_gpu.cpu() - a_cpu).abs().max()) <= 1e-4
     head = yuv_head(yuv, 0, 4)
-    before = pool_kernel.planar_launches
+    before = k1_counts()
     a_gpu, _, d_gpu = step.run_offline(head, cfg, debug=True, device=dev)
-    assert pool_kernel.planar_launches - before == 2 * 4
+    assert k1_counts(before) == (4, 0, 0)
     a_cpu, _, d_cpu = step.run_offline(head, cfg, debug=True, device="cpu")
     assert torch.equal(d_gpu["hues"].cpu(), d_cpu["hues"])
     assert float((a_gpu.cpu() - a_cpu).abs().max()) <= 1e-4
@@ -563,18 +663,17 @@ def test_yuv_path_on_the_card_matches_the_cpu(dev, channels):
 @pytest.mark.parametrize("chunk_frames", [1, 4])
 def test_live_yuv_stream_on_the_card_equals_run_offline(dev, chunk_frames):
     """YUV dict frames streamed on the card with K3 and K4 on: the pulled
-    PCM equals the offline run on the card; the planar K1 launches twice a
-    dispatch."""
+    PCM equals the offline run on the card; K1's YUV entry launches once
+    a dispatch, its other entries never."""
     cfg = AuralizerConfig(channels=2, use_pallas=True,
                           use_pallas_vision=True, ring_buffer_frames=64)
     yuv = structured_yuv_frames(21, 10, 192, 256)
     frames = [{k: v[i] for k, v in yuv.items()} for i in range(10)]
-    before = pool_kernel.planar_launches
+    before = k1_counts()
     aur = Auralizer(source=frames, config=cfg, device=dev,
                     chunk_frames=chunk_frames)
     aur.run_until_exhausted(timeout=60)
-    assert pool_kernel.planar_launches - before == \
-        2 * aur.metrics["dispatches"]
+    assert k1_counts(before) == (aur.metrics["dispatches"], 0, 0)
     got = aur.pull(10 * 2048 * 2)
     if chunk_frames == 1:
         ref, _, _ = step.run_offline(yuv, cfg, device=dev)

@@ -335,7 +335,11 @@ def test_cpu_tensors_take_the_plain_versions_without_counting(rng):
     pf, scale, w = k2_inputs(rng, 1, 2)
     mods = (pool_kernel, spectrum_kernel, vision_kernel, audio_kernel)
     before = [m.launches for m in mods]
+    k1_before = (pool_kernel.planar_launches, pool_kernel.yuv_launches)
     pool_kernel.mip_pool(frames, 3, 1 / 255.0)
+    pool_kernel.mip_pool_planes(frames[..., 0], 3)
+    pool_kernel.mip_pool_yuv420(frames[..., 0], frames[:, :16, :16, 1],
+                                frames[:, :16, :16, 2], 3)
     spectrum_kernel.hann_peak_weighted_sum(t(CFG.bin_frequencies()), t(pf),
                                            t(scale), t(w))
     vision_kernel.vision_stats(t(k3_mips(rng, (16, 16))[None]), CFG)
@@ -345,6 +349,8 @@ def test_cpu_tensors_take_the_plain_versions_without_counting(rng):
     audio_kernel.agc_overlap_add_chunk(z[None], z, z, torch.tensor(1.0),
                                        torch.tensor(1.0), torch.tensor(1.0))
     assert [m.launches for m in mods] == before
+    assert (pool_kernel.planar_launches, pool_kernel.yuv_launches) == \
+        k1_before
 
 
 def test_wrappers_raise_for_a_device_without_kernel():
@@ -353,6 +359,9 @@ def test_wrappers_raise_for_a_device_without_kernel():
     meta = torch.empty((1, 16, 16, 3), dtype=torch.uint8, device="meta")
     with pytest.raises(ValueError, match="no kernel"):
         pool_kernel.mip_pool(meta, 3)
+    with pytest.raises(ValueError, match="no kernel"):
+        pool_kernel.mip_pool_yuv420(meta[..., 0], meta[:, :8, :8, 1],
+                                    meta[:, :8, :8, 2], 3)
     f = torch.empty(8, device="meta")
     with pytest.raises(ValueError, match="no kernel"):
         spectrum_kernel.hann_peak_weighted_sum(

@@ -277,7 +277,7 @@ def test_lut_table_equals_jax_and_the_direct_advance():
     """_phase_advance_table is byte-equal to the JAX table, and the gather
     equals the direct advance bit for bit on every hue."""
     cfg = dataclasses.replace(CFG, use_phase_lut=True)
-    consts = spectrum.SynthConstants.create(cfg)
+    consts = spectrum.SynthConstants.create(cfg, "cpu")
     table = spectrum._phase_advance_table(cfg, consts)
     ref = jax_spectrum._phase_advance_table(cfg, JaxConsts.create(cfg))
     assert table.dtype == torch.float32 and table.shape == ref.shape
@@ -292,15 +292,15 @@ def test_lut_cache_is_keyed_by_values():
     """Two constants objects of equal values share one table; a change of
     f0_base, of the sample rate or of a constant's value gives another."""
     cfg = dataclasses.replace(CFG, use_phase_lut=True)
-    a = spectrum._phase_advance_table(cfg, spectrum.SynthConstants.create(cfg))
-    b = spectrum._phase_advance_table(cfg, spectrum.SynthConstants.create(cfg))
+    a, b = (spectrum._phase_advance_table(
+        cfg, spectrum.SynthConstants.create(cfg, "cpu")) for _ in range(2))
     assert a is b
     for other in (dataclasses.replace(cfg, f0_base=110.0),
                   dataclasses.replace(cfg, sample_rate=48000.0)):
         c = spectrum._phase_advance_table(
-            other, spectrum.SynthConstants.create(other))
+            other, spectrum.SynthConstants.create(other, "cpu"))
         assert c is not a and not torch.equal(c, a)
-    consts = spectrum.SynthConstants.create(cfg)
+    consts = spectrum.SynthConstants.create(cfg, "cpu")
     moved = dataclasses.replace(consts, freqs=consts.freqs * 2)
     assert not torch.equal(spectrum._phase_advance_table(cfg, moved), a)
 

@@ -201,11 +201,11 @@ def test_carry_round_trip():
     cfg = AuralizerConfig(channels=2)
     _, carry, _ = chunked.run_offline_batched(
         structured_frames(5, 3, 64, 64), cfg, device="cpu")
-    back = step.carry_from_numpy(step.carry_to_numpy(carry))
+    back = step.carry_from_numpy(step.carry_to_numpy(carry), "cpu")
     for name in step.StepCarry._fields:
         a, b = getattr(carry, name), getattr(back, name)
         assert a.dtype == b.dtype and torch.equal(a, b), name
-    fresh = step.init_carry(cfg)
+    fresh = step.init_carry(cfg, "cpu")
     ref = jax_step.init_carry(cfg)
     for name in step.StepCarry._fields:
         assert step.carry_to_numpy(fresh)[name].shape == \
@@ -224,7 +224,7 @@ def test_jax_carry_resumes_in_the_port():
         frames[8:], cfg, dict(PARAMS), carry=jax_step.StepCarry(**saved))
     a_got, c_got, _ = chunked.run_offline_batched(
         frames[8:], cfg, dict(PARAMS),
-        carry=step.carry_from_numpy(saved), device="cpu")
+        carry=step.carry_from_numpy(saved, "cpu"), device="cpu")
     np.testing.assert_allclose(a_got.numpy(), np.asarray(a_ref),
                                atol=PCM_ATOL)
     assert_carries_agree(c_got, c_ref)

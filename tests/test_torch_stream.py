@@ -459,7 +459,7 @@ def test_port_checkpoint_resumes_in_jax(tmp_path):
 def test_checkpoint_validation(tmp_path):
     cfg = AuralizerConfig()
     path = str(tmp_path / "s.npz")
-    checkpoint.save_state(path, step.init_carry(cfg))
+    checkpoint.save_state(path, step.init_carry(cfg, "cpu"))
     with pytest.raises(ValueError, match="wrong AuralizerConfig"):
         checkpoint.load_state(path, AuralizerConfig(nfft=2048), "cpu")
     other = str(tmp_path / "o.npz")

@@ -19,7 +19,7 @@ def t(x):
 
 
 def consts_pair(cfg):
-    return js.SynthConstants.create(cfg), ts.SynthConstants.create(cfg)
+    return js.SynthConstants.create(cfg), ts.SynthConstants.create(cfg, "cpu")
 
 
 def frame_inputs(rng, cfg):
@@ -45,7 +45,8 @@ def test_synth_constants_are_byte_equal(cfg):
 
 def test_constants_from_numpy_round_trip():
     ref, _ = consts_pair(AuralizerConfig())
-    got = ts.SynthConstants.from_numpy(**dataclasses.asdict(ref))
+    got = ts.SynthConstants.from_numpy("cpu",
+                                       **dataclasses.asdict(ref))
     for name, arr in got.to_numpy().items():
         assert arr.tobytes() == getattr(ref, name).tobytes(), name
     assert got.num_partials == ref.num_partials
@@ -108,7 +109,8 @@ def test_pan_gains(rng):
     angles = rng.uniform(0, np.pi / 2, 16).astype(np.float32)
     for width, ang in [(1.0, None), (0.3, None), (1.7, angles)]:
         ref = js.live_pan_gains(cfg, np.float32(width), angles=ang)
-        got = ts.live_pan_gains(cfg, np.float32(width), angles=ang)
+        got = ts.live_pan_gains(cfg, np.float32(width), angles=ang,
+                                device="cpu")
         np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=1e-7)
 
 

@@ -1,8 +1,8 @@
 """Planar YUV 4:2:0 ingest in the port against the JAX package on the same
-numpy inputs: kernel K1's planar entry (its plain version here), the YUV
-mips, the host io (conversion, parsing, raw-video sources), and YUV clips
-through every path: chunked, per frame, blocked, the live stream per frame
-and in chunks, and ``Auralizer.sonify``.
+numpy inputs: kernel K1's planar and YUV entries (their plain versions
+here), the YUV mips, the host io (conversion, parsing, raw-video
+sources), and YUV clips through every path: chunked, per frame, blocked,
+the live stream per frame and in chunks, and ``Auralizer.sonify``.
 
 Bands: the planar pool, the YUV -> RGB mips (against EAGER JAX calls) and
 the io are exact.  The pipelines are held to hues equal and PCM within
@@ -74,7 +74,7 @@ def test_planar_pool_matches_the_pallas_kernel(rng, shape, level):
     sums (scale 4^l) exact against both; at the studio-swing scales exact
     against the eager path (one rounded multiply, one rounded add) and
     within an ulp of the largest output, 255 scale, of the kernel (whose
-    multiply-add may be one FMA); the pair form equals two single calls."""
+    multiply-add may be one FMA)."""
     planes = rng.integers(0, 256, (2,) + shape, dtype=np.uint8)
     for scale in (float(4 ** level), 1 / 219.0, 1 / 224.0):
         kernel = np.asarray(mip_pool_pallas(jnp.asarray(planes), level,
@@ -85,9 +85,6 @@ def test_planar_pool_matches_the_pallas_kernel(rng, shape, level):
         np.testing.assert_array_equal(got, eager)
         atol = 0.0 if scale > 1 else np.spacing(np.float32(255 * scale))
         np.testing.assert_allclose(got, kernel, rtol=0, atol=atol)
-        a, b = pool_kernel.mip_pool_planes(t(planes[:1]), level, scale,
-                                           second=t(planes[1:]))
-        np.testing.assert_array_equal(torch.cat([a, b]).numpy(), eager)
 
 
 @pytest.mark.parametrize("H,W,level,studio", [
@@ -102,6 +99,27 @@ def test_yuv_mips_equal_eager_jax(rng, H, W, level, studio):
     got = tf.yuv420_mip_to_rgb_planes(t(yuv["y"]), t(yuv["u"]), t(yuv["v"]),
                                       cfg, studio_swing=studio).numpy()
     for k in range(3):
+        ref = jf.yuv420_mip_to_rgb_planes(
+            jnp.asarray(yuv["y"][k]), jnp.asarray(yuv["u"][k]),
+            jnp.asarray(yuv["v"][k]), cfg, studio_swing=studio)
+        np.testing.assert_array_equal(got[k], np.asarray(ref))
+
+
+@pytest.mark.parametrize("H,W,level,studio", [
+    (64, 64, 3, True), (62, 46, 3, True), (64, 96, 1, True),
+    (64, 64, 2, False), (96, 128, 4, True), (64, 96, 1, False),
+    (130, 258, 7, True), (129, 300, 7, False)])
+def test_fused_yuv_plain_equals_eager_jax(rng, H, W, level, studio):
+    """K1's YUV entry's plain version, mip_pool_yuv420_plain, against the
+    eager JAX yuv420_mip_to_rgb_planes frame by frame, bit for bit: at
+    mip_level 1 the chroma is not pooled (v * scale, not the epilogue's
+    (v - 128) scale + 128 scale), at 7 the chroma pools at 6."""
+    yuv = random_yuv(rng, 2, H, W)
+    got = pool_kernel.mip_pool_yuv420_plain(
+        t(yuv["y"]), t(yuv["u"]), t(yuv["v"]), level, studio).numpy()
+    assert got.shape == (2, 3, H >> level, W >> level)
+    cfg = dataclasses.replace(CFG, mip_level=level)
+    for k in range(2):
         ref = jf.yuv420_mip_to_rgb_planes(
             jnp.asarray(yuv["y"][k]), jnp.asarray(yuv["u"][k]),
             jnp.asarray(yuv["v"][k]), cfg, studio_swing=studio)
@@ -127,22 +145,29 @@ def test_yuv_needs_a_mip_level(rng):
 
 
 def test_the_yuv_mips_route_through_the_planar_entry(rng, monkeypatch):
-    """Two planar K1 calls a dispatch: Y at mip_level, U and V together at
-    mip_level - 1 (and none for chroma at level 0)."""
+    """One call of K1's YUV entry a dispatch, at every mip level K1 takes
+    (at 1 too, where the chroma is not pooled), and none of the planar or
+    interleaved entries; the planes reach it as they came."""
     calls = []
-    plain = pool_kernel.mip_pool_planes
+    fused = pool_kernel.mip_pool_yuv420
 
-    def counting(planes, level, scale=1.0, second=None):
-        calls.append((tuple(planes.shape), level, second is not None))
-        return plain(planes, level, scale, second=second)
+    def counting(y, u, v, level, studio_swing=True):
+        calls.append((tuple(y.shape), tuple(u.shape), level, studio_swing))
+        return fused(y, u, v, level, studio_swing)
 
-    monkeypatch.setattr(pool_kernel, "mip_pool_planes", counting)
+    def never(*args, **kwargs):
+        raise AssertionError("a YUV dispatch reached another K1 entry")
+
+    monkeypatch.setattr(pool_kernel, "mip_pool_yuv420", counting)
+    monkeypatch.setattr(pool_kernel, "mip_pool_planes", never)
+    monkeypatch.setattr(pool_kernel, "mip_pool", never)
     yuv = {k: t(v) for k, v in random_yuv(rng, 4, 64, 64).items()}
-    tf.frame_mip_planes(yuv, CFG)
-    assert calls == [((4, 64, 64), 3, False), ((4, 32, 32), 2, True)]
-    calls.clear()
-    tf.frame_mip_planes(yuv, dataclasses.replace(CFG, mip_level=1))
-    assert calls == [((4, 64, 64), 1, False)]
+    for level in (3, 1):
+        calls.clear()
+        mips = tf.frame_mip_planes(yuv, dataclasses.replace(
+            CFG, mip_level=level))
+        assert calls == [((4, 64, 64), (4, 32, 32), level, True)]
+        assert mips.shape == (4, 3, 64 >> level, 64 >> level)
 
 
 # ---------------------------------------------------------------------------

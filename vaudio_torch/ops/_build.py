@@ -33,8 +33,8 @@ _F = ctypes.c_float
 # cudaError_t of the launch).
 _SIGNATURES = {
     "vaudio_mip_pool_u8": [_P, _P, _I, _I, _I, _I, _F, _F, _P],
-    "vaudio_mip_pool_planes_u8": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _F,
-                                  _P],
+    "vaudio_mip_pool_planes_u8": [_P, _P, _I, _I, _I, _I, _F, _F, _P],
+    "vaudio_mip_pool_yuv420_u8": [_P] * 4 + [_I] * 6 + [_F] * 10 + [_P],
     "vaudio_hann_peak_weighted_sum": [_P, _P, _P, _P, _P, _I, _I, _I, _I,
                                       _P],
     "vaudio_vision_stats": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F,

@@ -33,9 +33,11 @@ class StepCarry(NamedTuple):
     running_max: torch.Tensor    # f32[]         — AGC envelope
 
 
-def init_carry(cfg: AuralizerConfig, device="cpu") -> StepCarry:
+def init_carry(cfg: AuralizerConfig, device=None) -> StepCarry:
     """The reference's cold start: hues 0, phases/spectrum/tail 0, running
-    max 1.0 (VisionEngine.swift:33, SoundEngine.swift:73)."""
+    max 1.0 (VisionEngine.swift:33, SoundEngine.swift:73), on ``device``
+    (:func:`vaudio_torch.device`: the card unless given)."""
+    device = pick_device(device)
     spec_shape = (cfg.num_bins, 2) if cfg.channels == 1 \
         else (cfg.channels, cfg.num_bins, 2)
     tail_shape = (cfg.nfft,) if cfg.channels == 1 \
@@ -50,10 +52,12 @@ def init_carry(cfg: AuralizerConfig, device="cpu") -> StepCarry:
     )
 
 
-def carry_from_numpy(carry, device="cpu") -> StepCarry:
-    """A :class:`StepCarry` on ``device`` from tensors or numpy-convertible
-    fields: a dict, or a NamedTuple such as the JAX package's
-    ``StepCarry``.  Host arrays are copied, never shared."""
+def carry_from_numpy(carry, device=None) -> StepCarry:
+    """A :class:`StepCarry` on ``device`` (:func:`vaudio_torch.device`: the
+    card unless given) from tensors or numpy-convertible fields: a dict,
+    or a NamedTuple such as the JAX package's ``StepCarry``.  Host arrays
+    are copied, never shared."""
+    device = pick_device(device)
     fields = carry._asdict() if hasattr(carry, "_asdict") else dict(carry)
     return StepCarry(**{
         name: (fields[name].to(device) if isinstance(fields[name],

@@ -14,6 +14,7 @@ import functools
 import numpy as np
 import torch
 
+from vaudio_torch import device as pick_device
 from vaudio_torch.config import BESSEL_RATIOS, AuralizerConfig
 from vaudio_torch.dsp.core import find_closest_index, hue_to_f0
 from vaudio_torch.ops.spectrum_kernel import hann_peak_weighted_sum
@@ -45,9 +46,10 @@ class SynthConstants:
     harmonic_numbers: torch.Tensor  # f32[13]
 
     @classmethod
-    def create(cls, cfg: AuralizerConfig, device="cpu") -> "SynthConstants":
+    def create(cls, cfg: AuralizerConfig, device=None) -> "SynthConstants":
         """The same numpy construction as the JAX package (f64 hashes cast
-        to f32 once), so the arrays are byte-equal to its constants."""
+        to f32 once), so the arrays are byte-equal to its constants; on
+        ``device`` (:func:`vaudio_torch.device`: the card unless given)."""
         F = cfg.num_bins
         nc = cfg.num_cells
         nh = cfg.num_harmonics
@@ -87,9 +89,11 @@ class SynthConstants:
         )
 
     @classmethod
-    def from_numpy(cls, device="cpu", **arrays) -> "SynthConstants":
+    def from_numpy(cls, device=None, **arrays) -> "SynthConstants":
         """Constants from numpy arrays, e.g. the fields of the JAX
-        package's ``SynthConstants`` (``dataclasses.asdict``)."""
+        package's ``SynthConstants`` (``dataclasses.asdict``), on
+        ``device`` (:func:`vaudio_torch.device`: the card unless given)."""
+        device = pick_device(device)
         return cls(**{f.name: torch.as_tensor(np.asarray(arrays[f.name]),
                                               device=device)
                       for f in dataclasses.fields(cls)})
@@ -262,9 +266,11 @@ def cell_pan_gains(cfg: AuralizerConfig) -> np.ndarray:
 
 
 def live_pan_gains(cfg: AuralizerConfig, stereo_width, angles=None,
-                   device="cpu"):
-    """Width-scaled equal-power pan gains f32[num_cells, 2]:
+                   device=None):
+    """Width-scaled equal-power pan gains f32[num_cells, 2] on ``device``
+    (:func:`vaudio_torch.device`: the card unless given):
     theta' = pi/4 + width (theta - pi/4), clipped to [0, pi/2]."""
+    device = pick_device(device)
     if angles is None:
         theta = torch.as_tensor(cell_pan_angles(cfg), device=device)
     else:
@@ -276,9 +282,10 @@ def live_pan_gains(cfg: AuralizerConfig, stereo_width, angles=None,
     return torch.stack([torch.cos(eff), torch.sin(eff)], dim=1)
 
 
-def live_pan_from_params(cfg: AuralizerConfig, params, device="cpu"):
+def live_pan_from_params(cfg: AuralizerConfig, params, device=None):
     """Pan gains from a params dict carrying ``stereo_width`` and/or
-    ``pan_angles``, else None (the static column pan law)."""
+    ``pan_angles`` (on ``device``, as :func:`live_pan_gains`), else None
+    (the static column pan law)."""
     if cfg.channels != 2 or params is None:
         return None
     angles = params.get("pan_angles")

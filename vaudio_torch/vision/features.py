@@ -439,12 +439,15 @@ def yuv420_mip_to_rgb_planes(y, u, v, cfg: AuralizerConfig,
     (..., H/2, W/2) -> f32 (..., 3, H >> l, W >> l) in [0, 1].
 
     The box filter commutes with the affine BT.601 transform, so Y pools
-    at ``mip_level`` and the chroma at ``mip_level - 1`` first (kernel K1's
-    planar entry: one launch for Y, one for U and V together), and the
-    colour conversion runs on the mips.  Each scale folds into K1's
-    epilogue; the offsets are separate adds, the chroma mips are cropped
-    to the luma's size, and the conversion is written as separate ops
-    (never a fused multiply-add), as eager JAX computes it.
+    at ``mip_level`` and the chroma at ``mip_level - 1`` first, and the
+    colour conversion runs on the mips.  u8 planes at a level K1 takes
+    (1..7) go through its YUV entry (:func:`ops.pool_kernel
+    .mip_pool_yuv420`, one launch a dispatch; its plain version on the
+    CPU): each scale folds into K1's epilogue, the offsets are separate
+    adds, the chroma mips are cropped to the luma's size, and the
+    conversion is separate rounded ops (never a fused multiply-add), as
+    eager JAX computes it.  Other planes take the same ops after
+    :func:`mip_downsample_planes`.
     """
     level = cfg.mip_level
     if level < 1:
@@ -452,28 +455,15 @@ def yuv420_mip_to_rgb_planes(y, u, v, cfg: AuralizerConfig,
             f"the planar-YUV ingest path pools half-resolution chroma at "
             f"mip level-1 and so requires mip_level >= 1 (got {level}); "
             f"convert to RGB on the host (io.yuv420_to_rgb) for mip_level=0")
-    if studio_swing:
-        y_scale, y_off = 1.0 / 219.0, -16.0 / 219.0
-        c_scale, c_off = 1.0 / 224.0, -128.0 / 224.0
-    else:
-        y_scale, y_off = 1.0 / 255.0, 0.0
-        c_scale, c_off = 1.0 / 255.0, -128.0 / 255.0
-    y_off, c_off = float(np.float32(y_off)), float(np.float32(c_off))
-    my = mip_downsample_planes(y, level, scale=y_scale) + y_off
-    if 1 <= level - 1 <= 7 and u.dtype == torch.uint8:
-        mu, mv = pool_kernel.mip_pool_planes(u.contiguous(), level - 1,
-                                             c_scale, second=v.contiguous())
-    else:
-        mu = mip_downsample_planes(u, level - 1, scale=c_scale)
-        mv = mip_downsample_planes(v, level - 1, scale=c_scale)
-    hm, wm = my.shape[-2:]
-    mu = mu[..., :hm, :wm] + c_off
-    mv = mv[..., :hm, :wm] + c_off
-    r = my + float(np.float32(1.402)) * mv
-    g = my - float(np.float32(0.344136)) * mu \
-        - float(np.float32(0.714136)) * mv
-    b = my + float(np.float32(1.772)) * mu
-    return torch.clamp(torch.stack([r, g, b], dim=-3), 0.0, 1.0)
+    if level <= 7 and all(p.dtype == torch.uint8 for p in (y, u, v)):
+        return pool_kernel.mip_pool_yuv420(y.contiguous(), u.contiguous(),
+                                           v.contiguous(), level,
+                                           studio_swing)
+    y_scale, y_off, c_scale, c_off = pool_kernel.yuv420_scales(studio_swing)
+    return pool_kernel.rgb_from_yuv_mips(
+        mip_downsample_planes(y, level, scale=y_scale),
+        mip_downsample_planes(u, level - 1, scale=c_scale),
+        mip_downsample_planes(v, level - 1, scale=c_scale), y_off, c_off)
 
 
 def frame_mip_planes(frames, cfg: AuralizerConfig):
