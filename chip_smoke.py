@@ -69,7 +69,32 @@ Phases, one line each; any failure exits non-zero:
 12. the debug surface: ``sonify(debug=True)`` (PCM equal to debug=False,
     the JAX package's shapes) and ``inspect_frame`` on a 1080p frame;
 13. a real-time stream: 90 frames paced at 30 fps, its latency p50 / p99
-    and achieved fps.
+    and achieved fps;
+14. native: the C++ host runtime (``vaudio_torch/native``: the audio ring
+    and the read-ahead frame reader) built with g++, its time (right after
+    the kernels' build);
+15. serve: the network-serving front door at ``live_config()``:
+    ``Auralizer(source=PushSource(maxsize=64, when_empty="block"),
+    device="cuda").serve(port=0)`` fed 64 frames over HTTP (``POST
+    /frames``: ``.npy`` RGB bodies through ``push_frames``, raw I420
+    bodies with ``?w=&h=&fmt=i420``), per frame and in chunks of 8, the
+    counts reset before each run and read after it (paths ``serve``,
+    ``serve_chunk``, ``serve_yuv``, ``serve_yuv_chunk``: K4 once a
+    dispatch, 64 times per frame; on I420 exactly one launch of K1's YUV
+    entry a dispatch and none of the others; every kernel of the path);
+    nothing dropped, the ring a ``NativeRingBuffer``, the pulled PCM equal
+    bit for bit to the offline runs on the card with the stream's
+    dispatches; ``/metrics``, ``/metrics.prom``, the four PNG views, ``POST
+    /params``, a ``/state.npz`` round trip and a malformed frame's 400;
+    ms/frame beside the in-process live run's; a served stream per frame
+    under torch.profiler (device events per frame, idle share);
+16. native reader: 64 frames of 1080p rgb24 and I420 from a file through
+    ``RawVideoSource(native=True, zero_copy=True)`` (borrowed pool views):
+    PCM equal to the in-memory source's run;
+17. paced: 90 frames pushed at 30 fps (``push_frames(fps=30)``) into the
+    default ``maxsize=8`` queue, ``GET /audio.wav`` the only consumer:
+    latency p50 / p99, fps, dropped frames, the WAV's RIFF header and
+    non-silence.
 
 Each kernel's line gives two times: from CUDA events around a loop of calls
 (``ms``; for a small kernel the host's launch overhead sets it) and the
@@ -82,12 +107,19 @@ CPU: without a card the script fails.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import io
 import json
+import os
 import re
 import subprocess
 import sys
+import tempfile
+import threading
 import time
+import urllib.error
+import urllib.request
 from pathlib import Path
 
 import numpy as np
@@ -963,13 +995,51 @@ def kind_of(name: str) -> str:
     return "other"
 
 
+def profiled(run) -> tuple:
+    """``run()`` under torch.profiler: (device events by kind: (count, µs),
+    the wall clock in ms, synchronised)."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows: dict = {}
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        n, us = rows.get(kind_of(e.name), (0, 0.0))
+        rows[kind_of(e.name)] = (n + 1, us + e.time_range.elapsed_us())
+    return rows, wall_ms
+
+
+def profile_line(label: str, rows: dict, wall_ms: float, T: int,
+                 dispatches: int, smi: str) -> str:
+    """The profile's line: wall and device busy per frame, the idle share,
+    device events per frame, host-to-device copies per dispatch, and the
+    events by kind."""
+    busy_ms = sum(us for _, us in rows.values()) / 1e3
+    if busy_ms <= 0:
+        return (f"profile: {label}: torch.profiler recorded no device "
+                f"events: not measured")
+    table = ", ".join(f"{k} {n / T:.2f}/frame {us / 1e3 / T:.4f} ms"
+                      for k, (n, us) in sorted(rows.items(),
+                                               key=lambda r: -r[1][1]))
+    return (f"profile: {label}, {T} frames 1080x1920 stereo: wall "
+            f"{wall_ms / T:.3f} ms/frame, device busy {busy_ms / T:.4f} "
+            f"ms/frame ({100 * busy_ms / wall_ms:.1f}% of the wall, idle "
+            f"{100 - 100 * busy_ms / wall_ms:.1f}%), "
+            f"{sum(n for n, _ in rows.values()) / T:.1f} device events/frame, "
+            f"HtoD copies {rows.get('Memcpy HtoD', (0, 0))[0] / dispatches:.1f}"
+            f"/dispatch ({dispatches} dispatches); by kind: {table} ({smi})")
+
+
 def phase_profile(frames, smi: str) -> None:
     """The live path under torch.profiler, per frame and in chunks, on RGB
     frames or a YUV dict: device events per frame by kind, host-to-device
     copies per dispatch, and the device's busy share of the run's wall
     clock."""
-    from torch.profiler import ProfilerActivity, profile
-
     from vaudio_torch.api import Auralizer
     cfg = live_config()
     T = 16
@@ -981,34 +1051,10 @@ def phase_profile(frames, smi: str) -> None:
         aur.run_until_exhausted(timeout=300)        # warm-up
         aur = Auralizer(source=source, config=cfg, device="cuda",
                         chunk_frames=chunk)
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            aur.run_until_exhausted(timeout=300)
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3
-        rows: dict = {}
-        for e in prof.events():
-            if e.device_type != torch.autograd.DeviceType.CUDA:
-                continue
-            n, us = rows.get(kind_of(e.name), (0, 0.0))
-            rows[kind_of(e.name)] = (n + 1, us + e.time_range.elapsed_us())
-        busy_ms = sum(us for _, us in rows.values()) / 1e3
-        if busy_ms <= 0:
-            say(f"profile: live {what}chunk_frames={chunk}: torch.profiler "
-                f"recorded no device events: not measured")
-            continue
-        dispatches = aur.metrics["dispatches"]
-        table = ", ".join(f"{k} {n / T:.2f}/frame {us / 1e3 / T:.4f} ms"
-                          for k, (n, us) in sorted(rows.items(),
-                                                   key=lambda r: -r[1][1]))
-        say(f"profile: live {what}chunk_frames={chunk}, {T} frames "
-            f"1080x1920 stereo: wall {wall_ms / T:.3f} ms/frame, device busy "
-            f"{busy_ms / T:.4f} ms/frame ({100 * busy_ms / wall_ms:.1f}% of "
-            f"the wall, idle {100 - 100 * busy_ms / wall_ms:.1f}%), "
-            f"{sum(n for n, _ in rows.values()) / T:.1f} device events/frame, "
-            f"HtoD copies {rows.get('Memcpy HtoD', (0, 0))[0] / dispatches:.1f}"
-            f"/dispatch ({dispatches} dispatches); by kind: {table} ({smi})")
+        rows, wall_ms = profiled(lambda: aur.run_until_exhausted(
+            timeout=300))
+        say(profile_line(f"live {what}chunk_frames={chunk}", rows, wall_ms,
+                         T, aur.metrics["dispatches"], smi))
 
 
 def phase_realtime(frames: np.ndarray, smi: str) -> None:
@@ -1043,6 +1089,365 @@ def phase_realtime(frames: np.ndarray, smi: str) -> None:
         f"samples ({smi})")
 
 
+def phase_native(smi: str) -> None:
+    """Build the C++ host runtime (``vaudio_torch/native``: the audio ring
+    and the read-ahead frame reader) with g++ and print its time; fail
+    unless it loads and the stream's ring is the C++ one."""
+    from vaudio_torch.runtime import ringbuffer
+    built = not ringbuffer.library_path().exists()
+    t0 = time.perf_counter()
+    path = ringbuffer.build()
+    secs = time.perf_counter() - t0
+    if ringbuffer._load_native() is None:
+        fail(f"the native runtime {path} does not load")
+    if not isinstance(ringbuffer.make_ring_buffer(4, 2, 1),
+                      ringbuffer.NativeRingBuffer):
+        fail("make_ring_buffer did not give the C++ ring")
+    gxx = subprocess.run(["g++", "--version"], capture_output=True,
+                         text=True).stdout.splitlines()[0]
+    say(f"native: C++ ring and frame reader {'built' if built else 'found'}"
+        f" in {secs:.2f} s ({gxx}, {' '.join(ringbuffer.CXX_FLAGS)}) -> "
+        f"{path} ({smi})")
+
+
+def http_json(url: str, body=None, timeout: float = 60):
+    """GET (``body`` None) or POST ``body`` (bytes, or an object sent as
+    JSON) to ``url``: (status, the JSON or raw reply)."""
+    if body is not None and not isinstance(body, bytes):
+        body = json.dumps(body).encode()
+    req = urllib.request.Request(url, data=body,
+                                 method="GET" if body is None else "POST")
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            status, data, ctype = r.status, r.read(), r.headers.get(
+                "Content-Type", "")
+    except urllib.error.HTTPError as e:
+        status, data, ctype = e.code, e.read(), "application/json"
+    return status, (json.loads(data) if "json" in ctype else data)
+
+
+def post_i420(url: str, clip, t: int) -> None:
+    """Frame ``t`` of a YUV clip as a raw I420 body to ``POST /frames``."""
+    from torch_frames import yuv420_bytes
+    h, w = clip["y"].shape[1:]
+    status, reply = http_json(f"{url}frames?w={w}&h={h}&fmt=i420",
+                              yuv420_bytes(clip, t))
+    if status != 200:
+        fail(f"POST /frames (raw I420) answered {status}: {reply}")
+
+
+def push_clip(url: str, clip) -> None:
+    """Every frame of ``clip`` over HTTP, then close the push stream: RGB
+    as ``.npy`` bodies through ``push_frames``, YUV as raw I420 bodies."""
+    from vaudio_torch.io.push import push_frames
+    if isinstance(clip, dict):
+        for t in range(len(clip["y"])):
+            post_i420(url, clip, t)
+        http_json(url + "push", {"close": True})
+    else:
+        push_frames(url, None, clip, timeout=60)
+
+
+def wait_stream_end(aur, timeout: float, what: str) -> None:
+    deadline = time.monotonic() + timeout
+    while aur.is_running and time.monotonic() < deadline:
+        time.sleep(0.005)
+    if aur.is_running:
+        fail(f"{what}: the stream did not end within {timeout:g} s")
+    aur.raise_if_failed()
+
+
+def offline_by_pattern(clip, pattern, cfg):
+    """The offline run on the card that a stream's dispatches make: a chunk
+    through run_offline_batched, each run of single steps through
+    run_offline, the carry chained; PCM as interleaved numpy."""
+    from vaudio_torch.runtime import chunked, step
+    outs, carry, start, k = [], None, 0, 0
+    while k < len(pattern):
+        n, singles = pattern[k], 0
+        while k + singles < len(pattern) and pattern[k + singles] == 1:
+            singles += 1
+        part = clip_slice(clip, start, start + (singles or n))
+        if singles:
+            pcm, carry, _ = step.run_offline(part, cfg, carry=carry,
+                                             device="cuda")
+            k, start = k + singles, start + singles
+        else:
+            pcm, carry, _ = chunked.run_offline_batched(
+                part, cfg, chunk=n, carry=carry, device="cuda")
+            k, start = k + 1, start + n
+        outs.append(pcm.cpu().numpy().reshape(-1))
+    return np.concatenate(outs)
+
+
+def check_endpoints(url: str, aur) -> str:
+    """The operator endpoints of a served stream that has run: /metrics,
+    /metrics.prom, the four PNG views, POST /params, a /state.npz round
+    trip, and a malformed frame answered with 400."""
+    status, m = http_json(url + "metrics")
+    if status != 200 or m["frames_processed"] != LIVE_T:
+        fail(f"GET /metrics: {status} {m}")
+    status, prom = http_json(url + "metrics.prom")
+    if status != 200 or f"vaudio_frames_processed {LIVE_T}" not in \
+            prom.decode():
+        fail(f"GET /metrics.prom: {status}")
+    sizes = []
+    for view in ("input", "hue_matrix", "spectrum", "waveform"):
+        status, png = http_json(f"{url}debug/{view}.png")
+        if status != 200 or not png.startswith(b"\x89PNG"):
+            fail(f"GET /debug/{view}.png: {status}")
+        sizes.append(f"{view} {len(png)} B")
+    status, reply = http_json(url + "params", {"release": 2.5})
+    if status != 200 or reply["applied"] != 1 or aur.params.release != 2.5:
+        fail(f"POST /params: {status} {reply}")
+    status, saved = http_json(url + "state.npz")
+    before = aur._stream.snapshot_carry()
+    status2, reply = http_json(url + "state.npz", saved)
+    after = aur._stream.snapshot_carry()
+    if status != 200 or status2 != 200 or not all(
+            np.array_equal(a, b) for a, b in zip(before, after)):
+        fail(f"/state.npz round trip: {status} {status2} {reply}")
+    status, reply = http_json(url + "frames",
+                              _npy(np.zeros((8, 8, 3), np.uint8)))
+    if status != 400:
+        fail(f"a malformed frame was answered {status}: {reply}")
+    return (f"/metrics, /metrics.prom, PNG views ({', '.join(sizes)}), "
+            f"POST /params, /state.npz round trip ({len(saved)} B) answered; "
+            f"a malformed frame: 400 ({reply['error'][:48]}...)")
+
+
+def _npy(arr) -> bytes:
+    buf = io.BytesIO()
+    np.save(buf, arr)
+    return buf.getvalue()
+
+
+def phase_serve(frames: np.ndarray, yuv: dict, live_ms: dict,
+                smi: str) -> dict:
+    """The serving path at ``live_config()``: 64 frames over HTTP into a
+    served PushSource stream, RGB ``.npy`` and raw I420 bodies, per frame
+    and in chunks of 8; launch counts, PCM against the offline runs on the
+    card, the operator endpoints, ms/frame beside the in-process live
+    run's; then a served stream per frame under torch.profiler.  Returns
+    the counts by path."""
+    from vaudio_torch.api import Auralizer
+    from vaudio_torch.io import PushSource
+    from vaudio_torch.runtime.ringbuffer import NativeRingBuffer
+    cfg = live_config()
+    counts = {}
+    for clip in (frames[:LIVE_T], clip_slice(yuv, 0, LIVE_T)):
+        is_yuv = isinstance(clip, dict)
+        what = "raw I420" if is_yuv else ".npy RGB"
+        pool = pool_of(clip)
+        for chunk in (1, LIVE_CHUNK):
+            path = ("serve" + ("_yuv" if is_yuv else "")
+                    + ("_chunk" if chunk > 1 else ""))
+            live = live_ms[("live_yuv" if is_yuv else "live")
+                           + ("_chunk" if chunk > 1 else "_frame")]
+            with tempfile.TemporaryDirectory() as tmp:
+                log = os.path.join(tmp, "dispatches.jsonl")
+                ps = PushSource(maxsize=LIVE_T, when_empty="block")
+                aur = Auralizer(source=ps, config=cfg, device="cuda",
+                                chunk_frames=chunk, metrics_log=log)
+                srv = aur.serve(port=0)
+                try:
+                    reset_counts()
+                    t0 = time.perf_counter()
+                    aur.start()
+                    # In chunks the first dispatch waits on the carry lock
+                    # (as behind a concurrent /state.npz snapshot) until
+                    # every frame is queued, so that whole chunks form.
+                    hold = (aur._stream._carry_lock if chunk > 1
+                            else contextlib.nullcontext())
+                    with hold:
+                        push_clip(srv.url, clip)
+                        t_pushed = time.perf_counter()
+                    wait_stream_end(aur, 300, f"serve {path}")
+                    wall = time.perf_counter() - t0
+                    launches = read_counts()
+                    m = aur.metrics
+                    ring = type(aur._stream.ring).__name__
+                    got = aur.pull(LIVE_T * cfg.hop_size * cfg.channels)
+                    extra = (check_endpoints(srv.url, aur)
+                             if path == "serve" else "")
+                finally:
+                    srv.stop()
+                    aur.stop()
+                pattern = [json.loads(line)["frames"] for line in open(log)]
+            counts[path] = launches
+            if ring != NativeRingBuffer.__name__:
+                fail(f"serve {path}: the stream's ring is a {ring}")
+            if (m["frames_processed"] != LIVE_T or m["dropped_frames"]
+                    or ps.dropped or ps.pushed != LIVE_T):
+                fail(f"serve {path}: {m}, queue {ps.state()}")
+            need = [pool, "hann_peak_weighted_sum", "vision_stats",
+                    "agc_overlap_add"]
+            if min(launches[k] for k in need) < 1:
+                fail(f"serve {path}: a kernel of the path never launched: "
+                     f"{launches}")
+            if launches["agc_overlap_add"] != len(pattern) or (
+                    chunk == 1 and len(pattern) != LIVE_T):
+                fail(f"serve {path}: K4 launched "
+                     f"{launches['agc_overlap_add']} times in "
+                     f"{len(pattern)} dispatches")
+            if is_yuv and (launches[pool] != len(pattern)
+                           or launches["mip_pool_u8"]
+                           or launches["mip_pool_planes_u8"]):
+                fail(f"serve {path}: not exactly 1 K1 launch a dispatch "
+                     f"(the YUV entry's), or another K1 entry launched: "
+                     f"{launches}, {len(pattern)} dispatches")
+            if chunk > 1 and LIVE_CHUNK not in pattern:
+                fail(f"serve {path}: no chunk of {LIVE_CHUNK} formed: "
+                     f"{pattern}")
+            ref = offline_by_pattern(clip, pattern, cfg)
+            if not np.array_equal(got, ref):
+                fail(f"serve {path}: the pulled PCM differs from the offline "
+                     f"run on the card by {np.abs(got - ref).max():.3e}")
+            if not np.any(got != 0):
+                fail(f"serve {path}: silent")
+            shape = (f"{pattern.count(LIVE_CHUNK)} chunks of {LIVE_CHUNK} "
+                     f"and {pattern.count(1)} single steps" if chunk > 1
+                     else f"{len(pattern)} single steps")
+            per = 1e3 / LIVE_T
+            took = f"{per * wall:.3f} ms/frame from the first push to the "
+            took += ("stream's end" if chunk == 1 else
+                     f"stream's end (the push {per * (t_pushed - t0):.3f}, "
+                     f"then the queued chunks "
+                     f"{per * (wall - (t_pushed - t0)):.3f})")
+            say(f"serve: {LIVE_T} {what} frames 1080x1920 stereo 48 kHz "
+                f"through POST /frames, chunk_frames={chunk} ({shape}): "
+                f"{took}, in-process live {live:.3f} ms/frame; latency "
+                f"p50 {m['latency_p50_ms']:.3f} ms p99 "
+                f"{m['latency_p99_ms']:.3f} ms; nothing dropped, ring "
+                f"{ring}; PCM equal to the offline run on the card with the "
+                f"stream's dispatches; launches {launches} ({smi})")
+            if extra:
+                say(f"serve: {extra} ({smi})")
+    for clip in (frames[:16], clip_slice(yuv, 0, 16)):
+        what = "YUV 4:2:0 raw I420" if isinstance(clip, dict) else ".npy RGB"
+        ps = PushSource(maxsize=16, when_empty="block")
+        aur = Auralizer(source=ps, config=cfg, device="cuda")
+        srv = aur.serve(port=0)
+
+        def run():
+            aur.start()
+            push_clip(srv.url, clip)
+            wait_stream_end(aur, 300, "serve profile")
+
+        try:
+            rows, wall_ms = profiled(run)
+        finally:
+            srv.stop()
+            aur.stop()
+        say(profile_line(f"served {what} chunk_frames=1", rows, wall_ms, 16,
+                         aur.metrics["dispatches"], smi))
+    return counts
+
+
+def phase_native_reader(frames: np.ndarray, yuv: dict, smi: str) -> None:
+    """64 frames of 1080p rgb24 and I420 written to a file and streamed
+    through RawVideoSource(native=True, zero_copy=True): the frames are
+    the C++ reader's borrowed pool views, and the PCM equals the in-memory
+    source's run on the card."""
+    from torch_frames import yuv420_bytes
+
+    from vaudio_torch.api import Auralizer
+    from vaudio_torch.io import BorrowedFrame, RawVideoSource
+    cfg = live_config()
+    with tempfile.TemporaryDirectory() as tmp:
+        for clip in (frames[:LIVE_T], clip_slice(yuv, 0, LIVE_T)):
+            is_yuv = isinstance(clip, dict)
+            H, W = (clip["y"] if is_yuv else clip).shape[1:3]
+            path = os.path.join(tmp, "clip.i420" if is_yuv else "clip.rgb")
+            with open(path, "wb") as f:
+                for t in range(LIVE_T):
+                    f.write(yuv420_bytes(clip, t) if is_yuv
+                            else clip[t].tobytes())
+            src = RawVideoSource(path, W, H,
+                                 pix_fmt="i420" if is_yuv else "rgb24",
+                                 raw=is_yuv, native=True, zero_copy=True)
+            it = src.frames()
+            first = next(it)
+            it.close()
+            if not isinstance(first["y"] if is_yuv else first,
+                              BorrowedFrame):
+                fail("RawVideoSource(native=True, zero_copy=True) did not "
+                     "yield the native reader's pool views")
+            pcm, ms = [], []
+            for source in (src, as_source(clip)):
+                aur = Auralizer(source=source, config=cfg, device="cuda")
+                t0 = time.perf_counter()
+                aur.run_until_exhausted(timeout=300)
+                ms.append(1e3 * (time.perf_counter() - t0) / LIVE_T)
+                if aur.metrics["frames_processed"] != LIVE_T:
+                    fail(f"native reader: {aur.metrics}")
+                pcm.append(aur.pull(LIVE_T * cfg.hop_size * cfg.channels))
+            if not np.array_equal(pcm[0], pcm[1]) or not np.any(pcm[0]):
+                fail("native reader: the PCM differs from the in-memory "
+                     "source's run (or is silent)")
+            say(f"native reader: {LIVE_T} frames 1080x1920 "
+                f"{'I420' if is_yuv else 'rgb24'} "
+                f"({os.path.getsize(path) / 1e6:.0f} MB file) through "
+                f"RawVideoSource(native=True, zero_copy=True), per frame: "
+                f"{ms[0]:.3f} ms/frame, the in-memory source {ms[1]:.3f}; "
+                f"PCM equal bit for bit ({smi})")
+
+
+def phase_paced(frames: np.ndarray, smi: str) -> None:
+    """90 frames pushed at 30 fps into the default maxsize=8 queue of a
+    served stream, GET /audio.wav the only consumer of its ring: latency
+    p50 / p99, fps, dropped frames, the WAV's RIFF header and
+    non-silence."""
+    from vaudio_torch.api import Auralizer
+    from vaudio_torch.io import PushSource
+    from vaudio_torch.io.push import push_frames
+    cfg = live_config()
+    ps = PushSource(when_empty="block")
+    aur = Auralizer(source=ps, config=cfg, device="cuda")
+    srv = aur.serve(port=0)
+    wav: dict = {}
+
+    def listen():
+        with urllib.request.urlopen(srv.url + "audio.wav",
+                                    timeout=120) as r:
+            wav["body"] = r.read()       # until the stream ends and drains
+
+    listener = threading.Thread(target=listen, daemon=True)
+    try:
+        aur.start()
+        listener.start()
+        t0 = time.perf_counter()
+        sent = push_frames(srv.url, None, frames[:REALTIME_T],
+                           fps=cfg.video_fps, timeout=60)
+        push_s = time.perf_counter() - t0
+        wait_stream_end(aur, 120, "paced serve")
+        m = aur.metrics
+        listener.join(timeout=120)
+    finally:
+        srv.stop()
+        aur.stop()
+    if listener.is_alive() or "body" not in wav:
+        fail("paced serve: /audio.wav did not end with the stream")
+    body = wav["body"]
+    pcm = np.frombuffer(body[44:len(body) - len(body) % 2], "<i2")
+    if body[:4] != b"RIFF" or body[8:12] != b"WAVE" or body[36:40] != \
+            b"data" or not pcm.size or np.abs(pcm).max() <= 50:
+        peak = np.abs(pcm).max() if pcm.size else 0
+        fail(f"paced serve: /audio.wav header {body[:44]!r}, "
+             f"{pcm.size} samples, peak {peak}")
+    if sent != REALTIME_T or m["frames_processed"] != REALTIME_T - ps.dropped:
+        fail(f"paced serve: sent {sent}, {m}, queue {ps.state()}")
+    say(f"paced: {REALTIME_T} .npy RGB frames 1080x1920 stereo 48 kHz pushed "
+        f"at {cfg.video_fps:g} fps ({sent / push_s:.2f} fps sent) into "
+        f"PushSource(maxsize={ps.maxsize}): latency p50 "
+        f"{m['latency_p50_ms']:.3f} ms p99 {m['latency_p99_ms']:.3f} ms, "
+        f"achieved {m['achieved_fps']:.2f} fps, dropped {ps.dropped} at the "
+        f"queue and {m['dropped_frames']} at the ring; /audio.wav the only "
+        f"consumer: RIFF/WAVE header, {pcm.size} int16 samples "
+        f"({pcm.size / cfg.channels / cfg.sample_rate:.2f} s), peak "
+        f"{np.abs(pcm).max()} ({smi})")
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke test runs "
@@ -1052,6 +1457,7 @@ def main() -> None:
     from torch_frames import structured_frames, structured_yuv_frames
     smi = phase_env()
     phase_build(smi)
+    phase_native(smi)
     t0 = time.perf_counter()
     frames = structured_frames(0, REALTIME_T, 1080, 1920)
     say(f"frames: {REALTIME_T} structured u8 frames 1080x1920 made in "
@@ -1075,9 +1481,12 @@ def main() -> None:
                     for p in ms if "_yuv" in p) + f" ({smi})")
     phase_profile(frames, smi)
     phase_profile(yuv, smi)
+    counts.update(phase_serve(frames, yuv, ms, smi))
+    phase_native_reader(frames, yuv, smi)
     phase_flags(frames[:CHUNK_T], smi)
     phase_debug(frames[:CHUNK_T], smi)
     phase_realtime(frames, smi)
+    phase_paced(frames, smi)
     for k in kernels:
         base = re.sub(r"_t\d+$", "", k["name"])
         k["launches"] = counts[k["path"]][base]

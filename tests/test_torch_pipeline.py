@@ -230,11 +230,13 @@ def test_jax_carry_resumes_in_the_port():
     assert_carries_agree(c_got, c_ref)
 
 
-def test_import_and_slice_leave_jax_out():
+def test_import_and_slice_leave_jax_out(tmp_path):
     """vaudio_torch imports neither jax nor the JAX package: checked in a
     fresh interpreter after the offline slice (RGB, a planar YUV dict and a
-    debug run) and a short stream with both kernel paths on, with TF32
-    off."""
+    debug run), a short stream with both kernel paths on, and the serving
+    path: frames pushed over HTTP into a served PushSource stream (the C++
+    ring), the control channel, the live debug surface, the debug views,
+    a checkpoint over HTTP and the native frame reader; with TF32 off."""
     code = textwrap.dedent("""
         import sys
         import numpy as np
@@ -261,11 +263,45 @@ def test_import_and_slice_leave_jax_out():
         assert aur.pull(4 * 2048 * 2).shape == (4 * 2048 * 2,)
         assert not torch.backends.cuda.matmul.allow_tf32
         assert not torch.backends.cudnn.allow_tf32
+
+        import io, time, urllib.request
+        from vaudio_torch.io import PushSource, RawVideoSource
+        from vaudio_torch.io.push import push_frames
+        from vaudio_torch.runtime.ringbuffer import NativeRingBuffer
+        tmp = sys.argv[1]
+        aur = Auralizer(source=PushSource(maxsize=4, when_empty="block"),
+                        config=cfg, device="cpu", debug=True)
+        channel = aur.attach_control(io.StringIO('{"attack": 0.5}\\n'))
+        renderer = aur.live_debug(tmp + "/live", every_frames=1)
+        server = aur.serve(port=0)
+        try:
+            aur.start()
+            assert push_frames(server.url, None, frames[:4]) == 4
+            t0 = time.monotonic()
+            while aur.is_running and time.monotonic() - t0 < 60:
+                time.sleep(0.01)
+            assert aur.metrics["frames_processed"] == 4
+            assert isinstance(aur._stream.ring, NativeRingBuffer)
+            for path in ("metrics.prom", "debug/input.png",
+                         "debug/spectrum.png", "state.npz"):
+                with urllib.request.urlopen(server.url + path,
+                                            timeout=30) as r:
+                    assert r.status == 200
+        finally:
+            server.stop()
+            renderer.stop()
+            aur.stop()
+        assert aur.params.attack == 0.5 and renderer.renders >= 1
+        with open(tmp + "/clip.rgb", "wb") as f:
+            f.write(frames.tobytes())
+        got = list(RawVideoSource(tmp + "/clip.rgb", 32, 32, native=True,
+                                  zero_copy=True).frames())
+        assert len(got) == 8
         print(sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "vaudio")))
     """)
-    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
-                         text=True, timeout=120)
+    out = subprocess.run([sys.executable, "-c", code, str(tmp_path)],
+                         capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "[]"
 
@@ -315,16 +351,14 @@ def test_flags_outside_the_slice_raise(flag):
 
 
 def test_inputs_outside_the_slice_raise():
-    """What stays unported raises naming its ROADMAP item (the control
-    channel, live debug, the server, the orthomodes model); an unknown
-    sonify mode is a ValueError."""
+    """What stays unported raises naming its ROADMAP item (the orthomodes
+    model, the only entry of _NOT_PORTED); an unknown sonify mode is a
+    ValueError."""
+    import vaudio_torch
     cfg = AuralizerConfig()
     aur = Auralizer(config=cfg, device="cpu")
-    for call in (lambda: aur.attach_control("ctl.fifo"),
-                 lambda: aur.live_debug("out"), lambda: aur.serve(),
-                 lambda: Auralizer(config=cfg, model="orthomodes",
-                                   device="cpu")):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            call()
+    assert list(vaudio_torch._NOT_PORTED) == ["the orthomodes model"]
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        Auralizer(config=cfg, model="orthomodes", device="cpu")
     with pytest.raises(ValueError, match="sonify mode"):
         aur.sonify(np.zeros((2, 32, 32, 3)), mode="stream")

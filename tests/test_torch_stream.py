@@ -20,7 +20,8 @@ from vaudio_torch.api import Auralizer
 from vaudio_torch.config import AuralizerConfig, LiveParams
 from vaudio_torch.io import BorrowedFrame
 from vaudio_torch.runtime import checkpoint, chunked, step
-from vaudio_torch.runtime.ringbuffer import PyRingBuffer, make_ring_buffer
+from vaudio_torch.runtime.ringbuffer import (NativeRingBuffer, PyRingBuffer,
+                                             make_ring_buffer)
 from vaudio_torch.runtime.stream import StreamingAuralizer
 
 PCM_ATOL = 2e-5          # the JAX package's chunked band (test_chunked.py:20)
@@ -110,8 +111,13 @@ class TestRingBufferContract:
         np.testing.assert_array_equal(rb.pull(2), 0.0)   # gated again
 
     def test_prefer_native_takes_the_python_ring(self):
-        assert isinstance(make_ring_buffer(4, 2, 1, prefer_native=True),
+        """prefer_native=False takes the Python ring; True the C++ one
+        (built here with g++; tests/test_torch_native.py holds both to
+        the JAX package's ring)."""
+        assert isinstance(make_ring_buffer(4, 2, 1, prefer_native=False),
                           PyRingBuffer)
+        assert isinstance(make_ring_buffer(4, 2, 1, prefer_native=True),
+                          NativeRingBuffer)
 
 
 # ---------------------------------------------------------------------------
@@ -492,14 +498,28 @@ def test_snapshot_while_streaming(tmp_path):
 # What the front door does not port yet
 # ---------------------------------------------------------------------------
 
-def test_pieces_still_to_port_raise():
+def test_pieces_still_to_port_raise(tmp_path):
+    """Only the orthomodes model is left to port: the control channel, the
+    live debug surface and the server now start (and stop)."""
     aur = Auralizer(config=AuralizerConfig(), device="cpu")
-    for call in (lambda: aur.attach_control("ctl.fifo"),
-                 lambda: aur.live_debug("out"), lambda: aur.serve(),
-                 lambda: Auralizer(config=AuralizerConfig(),
-                                   model="orthomodes", device="cpu")):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            call()
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        Auralizer(config=AuralizerConfig(), model="orthomodes",
+                  device="cpu")
+    ctl = tmp_path / "ctl.jsonl"
+    ctl.write_text('{"attack": 0.5}\n')
+    channel = aur.attach_control(str(ctl))
+    t0 = time.monotonic()
+    while channel.applied < 1 and time.monotonic() - t0 < TIMEOUT:
+        time.sleep(0.005)
+    renderer = aur.live_debug(str(tmp_path / "out"))
+    server = aur.serve()
+    try:
+        assert server.url.startswith("http://127.0.0.1:")
+    finally:
+        server.stop()
+        renderer.stop(final_render=False)
+        aur.stop()
+    assert channel._thread is None and aur.params.attack == 0.5
     with pytest.raises(TypeError, match="config="):
         Auralizer(AuralizerConfig(), device="cpu")
     with pytest.raises(ValueError, match="no frame source"):

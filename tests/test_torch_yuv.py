@@ -224,8 +224,9 @@ def test_yuv_file_source_equals_jax(rng, tmp_path, fmt, raw):
 
 
 def test_camera_source_defaults_and_the_native_reader(tmp_path):
-    """CameraSource: NV12 1080p planar dicts by default; rgb24 frames;
-    the native reader is not ported (ROADMAP 9.1) and raises."""
+    """CameraSource: NV12 1080p planar dicts by default; rgb24 frames, read
+    by the Python loop and by the native reader (zero-copy too; more in
+    tests/test_torch_native.py)."""
     cam = tio.CameraSource(str(tmp_path / "none"))
     assert (cam.shape, cam.pix_fmt, cam.raw) == ((1080, 1920), "nv12", True)
     frames = np.arange(2 * 4 * 6 * 3, dtype=np.uint8).reshape(2, 4, 6, 3)
@@ -233,8 +234,10 @@ def test_camera_source_defaults_and_the_native_reader(tmp_path):
     path.write_bytes(frames.tobytes())
     got = list(tio.RawVideoSource(str(path), 6, 4).frames())
     np.testing.assert_array_equal(np.stack(got), frames)
-    with pytest.raises(NotImplementedError, match="9.1"):
-        tio.RawVideoSource(str(path), 6, 4, native=True)
+    for zero_copy in (False, True):
+        got = [np.array(f) for f in tio.RawVideoSource(
+            str(path), 6, 4, native=True, zero_copy=zero_copy).frames()]
+        np.testing.assert_array_equal(np.stack(got), frames)
     with pytest.raises(ValueError, match="YUV pix_fmt"):
         tio.RawVideoSource(str(path), 6, 4, raw=True)
 

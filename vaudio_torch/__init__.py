@@ -10,7 +10,10 @@ for Hopper (``csrc/``): the u8 mip pool with its interleaved and planar
 entries (``ops.pool_kernel``), the Hann-peak spectrum contraction
 (``ops.spectrum_kernel``), the vision epilogue (``ops.vision_kernel``) and
 the AGC + overlap-add audio tail (``ops.audio_kernel``).  A CPU tensor runs
-each kernel's plain PyTorch version.
+each kernel's plain PyTorch version.  The live stream's host runtime, the
+audio ring and the read-ahead frame reader, is C++ (``native/``, built with
+``g++`` at first use); the HTTP server (``runtime.server``) and the control
+channel (``runtime.control``) serve a stream over the network.
 
 The entry points run on the card unless the caller asks for the CPU
 (``device="cpu"``).  Importing or running this package never imports jax
@@ -31,9 +34,6 @@ torch.backends.cudnn.allow_tf32 = False
 
 # Features not ported yet, each with the ROADMAP item that ports it.
 _NOT_PORTED = {
-    "attach_control (the live control channel)": "queue 1 item 9.3",
-    "live_debug": "queue 1 item 9.3",
-    "serve (the live HTTP server)": "queue 1 item 9.3",
     "the orthomodes model": "queue 1 item 10",
 }
 

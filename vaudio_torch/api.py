@@ -15,6 +15,15 @@ Streaming::
     pcm = aur.pull(512)                     # audio-callback style
     aur.stop()
 
+Serving (frames pushed over HTTP, ``POST /frames``)::
+
+    aur = Auralizer(source=PushSource(when_empty="block"))
+    server = aur.serve(port=0)              # LiveServer, non-blocking
+    aur.start()
+    push_frames(server.url, None, frames)   # from any client
+    ...
+    server.stop(); aur.stop()
+
 Everything runs on the card unless ``device="cpu"`` is asked for.
 """
 
@@ -25,9 +34,8 @@ from typing import Any, Dict, Iterable, Iterator, Optional, Union
 import numpy as np
 import torch
 
-from vaudio_torch import not_ported
 from vaudio_torch.config import AuralizerConfig, LiveParams
-from vaudio_torch.io import ArraySource, write_wav
+from vaudio_torch.io import ArraySource, PushSource, write_wav
 from vaudio_torch.runtime.chunked import run_offline_batched
 from vaudio_torch.runtime.engine import make_engine
 from vaudio_torch.runtime.step import num_frames, run_offline
@@ -69,6 +77,10 @@ class Auralizer:
         self.device = self._engine.device
         self.params = params if params is not None else LiveParams()
         self._source = source
+        #: The live :class:`PushSource` when the stream's source is
+        #: push-model (set by :meth:`start`); the server's ``POST /frames``
+        #: door feeds it.
+        self.push_source = None
         self._stream = StreamingAuralizer(
             config, params=self.params, realtime=realtime,
             prefer_native=prefer_native, debug=debug,
@@ -120,6 +132,22 @@ class Auralizer:
     def _frame_iter(self, source: SourceLike) -> Iterable[np.ndarray]:
         if source is None:
             raise ValueError("no frame source provided")
+        ps = source if isinstance(source, PushSource) else None
+        if ps is not None and ps.when_empty != "block":
+            # hold/dark yield None on idle ticks, a pod's semantics; the
+            # single stream's producer has its own thread and blocks.
+            raise ValueError(
+                "a single-stream push source must use "
+                "when_empty='block' (hold/dark idle ticks are pod "
+                "semantics)")
+        # Install only a validated source: a rejected one must not leave
+        # the server's /frames door queueing into a dead queue.
+        self.push_source = ps
+        # Flush on idle: with the push queue empty the producer is about
+        # to block in PushSource.frames(), so a partial chunk must not
+        # hold back the audio of the frames already pushed.
+        self._stream.idle_probe = (
+            (lambda: ps.fill == 0) if ps is not None else None)
         if isinstance(source, np.ndarray):
             return ArraySource(source).frames()
         frames = getattr(source, "frames", None)
@@ -133,6 +161,10 @@ class Auralizer:
         self._stream.start(self._frame_iter(source))
 
     def stop(self) -> None:
+        if self.push_source is not None:
+            # Wake a producer blocked in PushSource.frames(): the stream's
+            # stop flag is only read between frames.
+            self.push_source.close()
         self._stream.stop()
 
     def toggle(self, source: SourceLike = None) -> None:
@@ -161,15 +193,41 @@ class Auralizer:
         return self._stream.audio_stream(quantum, pace=pace)
 
     def attach_control(self, path_or_file, **kwargs):
-        raise not_ported("attach_control (the live control channel)")
+        """Attach a JSON-lines live-parameter control channel (a FIFO, a
+        file or an open file object): each line is a JSON object of
+        LiveParams updates applied mid-stream (the reference's control
+        sliders, ControlPanelView.swift:11-43).  Returns the started
+        :class:`~vaudio_torch.runtime.control.ControlChannel`, stopped by
+        :meth:`stop`."""
+        return self._stream.attach_control(path_or_file, **kwargs)
 
     def live_debug(self, out_dir: str, every_frames: int = 30,
                    full_heatmaps: bool = False):
-        raise not_ported("live_debug")
+        """Start a live debug surface: PNGs and an auto-refreshing
+        ``index.html`` re-rendered every ``every_frames`` processed frames
+        while the stream runs
+        (:class:`~vaudio_torch.runtime.control.LiveDebugRenderer`).  Needs
+        ``debug=True``.  Returns the started renderer (``.stop()`` it)."""
+        from vaudio_torch.runtime.control import LiveDebugRenderer
+        if not self._stream.debug:
+            raise ValueError("live_debug requires debug=True on this "
+                             "Auralizer (the stream publishes no debug "
+                             "state otherwise)")
+        return LiveDebugRenderer(self, out_dir, every_frames=every_frames,
+                                 full_heatmaps=full_heatmaps).start()
 
     def serve(self, port: int = 0, host: str = "127.0.0.1",
               refresh_ms: int = 500, token: Optional[str] = None):
-        raise not_ported("serve (the live HTTP server)")
+        """Start the live HTTP control panel and observability server
+        (parameters, metrics, checkpoints, debug views, ``POST /frames``
+        ingest into a :class:`PushSource` and a live ``/audio.wav``).
+        Non-blocking; returns the started
+        :class:`~vaudio_torch.runtime.server.LiveServer` (``.url``,
+        ``.stop()``).  ``port=0`` binds an ephemeral port.  The views need
+        ``debug=True``."""
+        from vaudio_torch.runtime.server import LiveServer
+        return LiveServer(self, host=host, port=port,
+                          refresh_ms=refresh_ms, token=token).start()
 
     def inspect_frame(self, frame) -> Dict[str, np.ndarray]:
         """One frame's full vision analysis (the ConvolutionDebugView
@@ -218,6 +276,12 @@ class Auralizer:
             "dropped_frames": ring.dropped_frames,
             "underrun_samples": ring.underrun_samples,
         }
+
+    def frame_error(self, frame) -> Optional[str]:
+        """Engine-aware validation for the network-ingest door: an error
+        message when this stream could not run the frame, else None
+        (``POST /frames``)."""
+        return self._engine.frame_error(frame, self.config)
 
     @property
     def failure(self):

@@ -5,6 +5,9 @@ YUV 4:2:0."""
 
 from __future__ import annotations
 
+import ctypes
+import os
+from collections import deque
 from typing import Iterator, Optional, Tuple
 
 import numpy as np
@@ -112,6 +115,110 @@ class ArraySource:
         return cls(np.load(path), fps)
 
 
+class NativeFrameReader:
+    """ctypes binding to the C++ read-ahead frame reader
+    (``native/framereader.cpp``): a background thread reads fixed-size raw
+    frames from a file, FIFO or device node into a bounded pool of slots,
+    so the consumer's device dispatch overlaps the next frame's I/O (the
+    reference's capture-delegate thread, VisionEngine.swift:55-75).
+
+    Two ways to consume:
+
+    * :meth:`frames_bytes` — one ``bytes`` copy per frame out of its slot,
+      which is recycled at once;
+    * :meth:`frames_view` — zero-copy read-only views of the slots, each
+      recycled ``release_lag`` iterations after it was yielded.
+    """
+
+    def __init__(self, path: str, frame_bytes: int, n_buffers: int = 4,
+                 timeout_ms: Optional[int] = None):
+        """``timeout_ms`` bounds the wait for each frame; None waits as
+        long as it takes (a live capture source idles until its producer
+        connects)."""
+        from vaudio_torch.runtime.ringbuffer import _load_native
+        lib = _load_native()
+        if lib is None:
+            raise RuntimeError("native frame reader unavailable")
+        self._lib = lib
+        self._h = lib.va_fr_open(os.fsencode(path), frame_bytes, n_buffers)
+        if not self._h:
+            raise FileNotFoundError(f"cannot open {path!r}")
+        self.frame_bytes = frame_bytes
+        self.n_buffers = n_buffers
+        self.timeout_ms = timeout_ms
+
+    def _next_slot(self) -> int:
+        """Block for the next filled slot; -1 = the stream ended and was
+        drained."""
+        while True:
+            slot = self._lib.va_fr_next(
+                self._h,
+                self.timeout_ms if self.timeout_ms is not None else 1000)
+            if slot == -2:
+                if self.timeout_ms is None:
+                    continue
+                raise TimeoutError(f"no frame within {self.timeout_ms} ms")
+            return slot
+
+    def frames_bytes(self) -> Iterator[bytes]:
+        while True:
+            slot = self._next_slot()
+            if slot == -1:
+                return
+            ptr = self._lib.va_fr_buffer(self._h, slot)
+            data = ctypes.string_at(ptr, self.frame_bytes)
+            self._lib.va_fr_release(self._h, slot)
+            yield data
+
+    def frames_view(self, release_lag: int = 2) -> Iterator[np.ndarray]:
+        """Zero-copy frames: read-only u8[frame_bytes] views of the pool
+        slots, marked :class:`BorrowedFrame`.
+
+        The view yielded at iteration n is recycled at iteration
+        ``n + release_lag`` (and when the generator closes): the consumer
+        is done with a frame within that window, as the per-frame stream
+        is (its copy to the device has consumed the host memory when it
+        returns), or copies it.  ``n_buffers > release_lag`` is required,
+        so that the reader thread always has a slot to fill ahead."""
+        if release_lag < 1:
+            raise ValueError("release_lag must be >= 1")
+        if release_lag >= self.n_buffers:
+            raise ValueError(
+                f"release_lag ({release_lag}) must be < n_buffers "
+                f"({self.n_buffers}): holding every pool slot leaves the "
+                f"reader thread no free slot and deadlocks the stream")
+        pending: deque = deque()
+        try:
+            while True:
+                slot = self._next_slot()
+                if slot == -1:
+                    return
+                ptr = self._lib.va_fr_buffer(self._h, slot)
+                buf = (ctypes.c_uint8 * self.frame_bytes).from_address(
+                    ctypes.addressof(ptr.contents))
+                view = np.frombuffer(buf, np.uint8).view(BorrowedFrame)
+                view.flags.writeable = False
+                pending.append(slot)
+                while len(pending) > release_lag:
+                    self._lib.va_fr_release(self._h, pending.popleft())
+                yield view
+        finally:
+            while pending:
+                self._lib.va_fr_release(self._h, pending.popleft())
+
+    @property
+    def frames_read(self) -> int:
+        return self._lib.va_fr_frames_read(self._h)
+
+    def close(self) -> None:
+        if getattr(self, "_h", None):
+            self._lib.va_fr_close(self._h)
+            self._h = None
+
+    def __del__(self):
+        self.close()
+
+
 class RawVideoSource:
     """Uncompressed frames from a plain file, a FIFO or a capture-device
     node, read whole frame by whole frame (CameraModel.swift:12-37).
@@ -122,11 +229,18 @@ class RawVideoSource:
     conversion, half the bytes to ship).  ``max_frames`` stops after N
     frames (a device node never ends).
 
-    The port reads with the Python exact-read loop only: ``native=True``
-    (the JAX package's C++ read-ahead reader) raises, and ``native=None``
-    (auto) quietly means Python, as in the JAX package where its library
-    does not load.  That is a choice of host reader, not a fallback from
-    the device.  ``zero_copy`` has no effect (each frame is its own array).
+    ``native``: read through the C++ read-ahead reader
+    (:class:`NativeFrameReader`, a background thread overlapping the
+    frame I/O with the consumer's device dispatch).  None = that reader
+    where the runtime library builds, else the Python exact-read loop, as
+    in the JAX package (a choice of host reader, not a fallback from the
+    device); True = required; False = the Python loop.
+
+    ``zero_copy``: with the native reader, yield frames as read-only views
+    over its pool slots (:meth:`NativeFrameReader.frames_view`, no
+    frame-sized copy), marked :class:`BorrowedFrame`: a frame's memory is
+    recycled two iterations later, so a consumer that keeps frames longer
+    copies them (:func:`own_frame`, as the chunked stream does).
     """
 
     def __init__(self, path: str, width: int, height: int,
@@ -140,10 +254,6 @@ class RawVideoSource:
                              f"(expected rgb24, i420 or nv12)")
         if raw and pix_fmt == "rgb24":
             raise ValueError("raw planar output requires a YUV pix_fmt")
-        if native:
-            raise NotImplementedError(
-                "vaudio_torch does not port the native frame reader yet "
-                "(ROADMAP.md queue 1 item 9.1); use native=None or False")
         self.path = path
         self._w, self._h = int(width), int(height)
         self.pix_fmt = pix_fmt
@@ -151,6 +261,8 @@ class RawVideoSource:
         self.studio_swing = studio_swing
         self.raw = raw
         self.max_frames = max_frames
+        self.native = native
+        self.zero_copy = zero_copy
 
     @property
     def shape(self) -> Tuple[int, int]:
@@ -175,25 +287,66 @@ class RawVideoSource:
             got += len(chunk)
         return b"".join(chunks)
 
-    def frames(self) -> Iterator:
-        h, w = self._h, self._w
-        n = 0
+    def _frame_bytes_iter(self) -> Iterator[bytes]:
+        """Raw frame payloads: the native read-ahead reader where it loads
+        (required with ``native=True``), else the Python exact-read
+        loop."""
+        if self.native is not False:
+            reader = None
+            try:
+                reader = NativeFrameReader(self.path, self.frame_bytes)
+            except RuntimeError:     # the library would not build or load
+                if self.native:
+                    raise
+            if reader is not None:
+                try:
+                    if self.zero_copy:
+                        yield from reader.frames_view()
+                    else:
+                        yield from reader.frames_bytes()
+                finally:
+                    reader.close()
+                return
         with open(self.path, "rb", buffering=0) as f:
-            # max_frames is checked before reading: a live source that
-            # delivered exactly max_frames must not block on one more.
-            while self.max_frames is None or n < self.max_frames:
+            while True:
                 buf = self._read_exact(f, self.frame_bytes)
                 if len(buf) < self.frame_bytes:
                     break
+                yield buf
+
+    def frames(self) -> Iterator:
+        h, w = self._h, self._w
+        n = 0
+        it = self._frame_bytes_iter()
+        try:
+            # max_frames is checked before reading: a live source that
+            # delivered exactly max_frames must not block on one more.
+            while self.max_frames is None or n < self.max_frames:
+                buf = next(it, None)
+                if buf is None:
+                    break
                 n += 1
+                borrowed = isinstance(buf, BorrowedFrame)
                 if self.pix_fmt == "rgb24":
-                    yield np.frombuffer(buf, np.uint8).reshape(h, w, 3)
+                    frame = np.frombuffer(buf, np.uint8).reshape(h, w, 3)
+                    # np.frombuffer drops the subclass: mark the pool view
+                    # again so that consumers which keep frames copy it.
+                    yield frame.view(BorrowedFrame) if borrowed else frame
                     continue
                 y, u, v = parse_yuv420(buf, h, w, self.pix_fmt)
                 if self.raw:
+                    if borrowed:
+                        # Only true pool views are marked: nv12's u and v
+                        # were copied out by the de-interleave.
+                        y = y.view(BorrowedFrame)
+                        if self.pix_fmt == "i420":
+                            u = u.view(BorrowedFrame)
+                            v = v.view(BorrowedFrame)
                     yield {"y": y, "u": u, "v": v}
                 else:
                     yield yuv420_to_rgb(y, u, v, self.studio_swing)
+        finally:
+            it.close()
 
 
 class CameraSource(RawVideoSource):

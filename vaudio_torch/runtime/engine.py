@@ -11,7 +11,9 @@ step's parameters.  The contract is the JAX package's:
 * ``make_chunk_step() -> step(carry, frames[N], params)``, ``out["pcm"]``
   shaped ``[N, hop]``;
 * ``carry_static``, ``init_carry``, ``params_arrays``, ``load_carry`` and
-  ``carry_mismatch``.
+  ``carry_mismatch``;
+* ``frame_error(frame, cfg) -> Optional[str]``, the network-ingest door's
+  check of what this engine can run.
 """
 
 from __future__ import annotations
@@ -55,6 +57,10 @@ class AuralizerEngine:
     def load_carry(self, path):
         from vaudio_torch.runtime.checkpoint import load_state
         return load_state(path, self.cfg, device=self.device)
+
+    def frame_error(self, frame, cfg=None) -> Optional[str]:
+        from vaudio_torch.runtime.server import frame_structure_error
+        return frame_structure_error(frame, cfg or self.cfg)
 
     def carry_mismatch(self, carry, frame) -> Optional[str]:
         """The flagship carry does not depend on the frame size."""

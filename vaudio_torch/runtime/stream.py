@@ -27,7 +27,6 @@ from typing import Dict, Iterable, Iterator, Optional
 import numpy as np
 import torch
 
-from vaudio_torch import not_ported
 from vaudio_torch.config import AuralizerConfig, LiveParams
 from vaudio_torch.io.sources import BorrowedFrame, own_frame
 from vaudio_torch.runtime.ringbuffer import make_ring_buffer
@@ -86,8 +85,8 @@ class StreamingAuralizer:
         frames (re-read at every dispatch).
       realtime: pace the producer at ``cfg.video_fps`` (True) or run as
         fast as the device allows (False).
-      prefer_native: accepted; the port's ring is the Python one
-        (:func:`runtime.ringbuffer.make_ring_buffer`).
+      prefer_native: the C++ ring where its library builds, else the
+        Python one (:func:`runtime.ringbuffer.make_ring_buffer`).
       chunk_frames: > 1 dispatches that many frames per device call
         through the chunk-batched pipeline (``make_chunk_step``), at the
         cost of chunk_frames - 1 frame times of buffering; a trailing
@@ -151,6 +150,11 @@ class StreamingAuralizer:
         #: Last debug snapshot (hues / grads / spectrum / pcm), refreshed
         #: per readback when ``debug``.
         self.debug_state: Dict[str, np.ndarray] = {}
+        #: A host copy of the last dispatched frame when ``debug`` (the
+        #: live views' input preview and per-pixel heatmaps).
+        self.last_frame = None
+        # The attached live-control channel, stopped with the stream.
+        self._control = None
 
     def _log_metrics(self, latency_ms: float, n_frames: int) -> None:
         if self._metrics_log is None:
@@ -208,6 +212,9 @@ class StreamingAuralizer:
         (phases, previous spectrum, hues, AGC envelope), except the OLA
         tail, which is zeroed (SoundEngine.swift:459-474)."""
         self._stop_event.set()
+        if self._control is not None:
+            self._control.stop()
+            self._control = None
         if self._thread is not None:
             self._thread.join(timeout=10.0)
             if not self._thread.is_alive():
@@ -244,7 +251,17 @@ class StreamingAuralizer:
             self.start(source)
 
     def attach_control(self, path_or_file, **kwargs):
-        raise not_ported("attach_control (the live control channel)")
+        """Attach a JSON-lines live-parameter control channel (a FIFO, a
+        file or a file object) that mutates this stream's
+        :class:`LiveParams` mid-run (:class:`runtime.control.ControlChannel`).
+        Started at once, stopped by :meth:`stop`; returns the channel."""
+        from vaudio_torch.runtime.control import ControlChannel
+        if self._control is not None:
+            self._control.stop()
+        kwargs.setdefault("num_cells", self.cfg.num_cells)
+        self._control = ControlChannel(self.params, path_or_file,
+                                       **kwargs).start()
+        return self._control
 
     def run_until_exhausted(self, source: Iterable[np.ndarray],
                             timeout: float = 60.0) -> None:
@@ -362,6 +379,13 @@ class StreamingAuralizer:
         drain_thread.start()
 
         def dispatch(frames_np, t_capture):
+            if self.debug:
+                # A copy: a zero-copy source's view is recycled two
+                # iterations later, and last_frame outlives that.
+                last = frames_np[-1]
+                self.last_frame = (
+                    {k: np.array(v) for k, v in last.items()}
+                    if isinstance(last, dict) else np.array(last))
             params_arrays = self.engine.params_arrays(self.params)
             if len(frames_np) == 1:
                 frame_dev = self._to_device(frames_np[0])
