@@ -94,7 +94,27 @@ Phases, one line each; any failure exits non-zero:
 17. paced: 90 frames pushed at 30 fps (``push_frames(fps=30)``) into the
     default ``maxsize=8`` queue, ``GET /audio.wav`` the only consumer:
     latency p50 / p99, fps, dropped frames, the WAV's RIFF header and
-    non-silence.
+    non-silence;
+18. OrthoModes offline: ``Auralizer(model="orthomodes", device="cuda")
+    .sonify`` on the 64 1080p frames (stereo 48 kHz asked, coerced to mono;
+    1980 oscillators at mip 5), from host and from device frames: K1 and K4
+    exactly once for the block of 64 and no other kernel, a profile of the
+    run, the 256x256 crop card vs CPU (PCM within 1e-4), and the plain
+    Hann x Lorentzian synthesis's device time per frame at T = 1 and 16
+    beside its bound (K1 at mip 5, T = 1 and 64, and K4's frame order at
+    T = 8 and 64, mono, are held to their plain versions in phases 3 and 8);
+19. OrthoModes live, per frame and in chunks of 8, 64 frames: K1 and K4
+    once a dispatch, the PCM equal bit for bit to the model's steps on the
+    card with the stream's dispatches; 16 frames of each under the
+    profiler;
+20. OrthoModes served: 64 ``.npy`` RGB frames through ``POST /frames``:
+    ``/state.npz`` 409 before the first frame, an I420 body 400, PCM equal
+    to the model's steps, and ``/state.npz`` after 32 frames restored into
+    a fresh served stream whose PCM continues the uninterrupted run bit for
+    bit;
+21. OrthoModes resolution change (1080p then 720p: counted, the 720p part
+    equal to a cold run) and a 720p checkpoint on 1080p frames failing with
+    the oscillator-count message.
 
 Each kernel's line gives two times: from CUDA events around a loop of calls
 (``ms``; for a small kernel the host's launch overhead sets it) and the
@@ -103,12 +123,18 @@ sum of its device events under torch.profiler (``device_ms``).
 The last lines are the card's name and power limit, a JSON line of the
 kernels, and ``{"ok": true, "device": {...}}``.  There is no fallback to the
 CPU: without a card the script fails.
+
+A request to a served stream that takes over 10 s prints every thread's
+stack to stderr and goes on waiting (up to 300 s); a run that is still going
+after 1140 s prints them and exits non-zero.
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import faulthandler
+import functools
 import io
 import json
 import os
@@ -126,9 +152,14 @@ import numpy as np
 import torch
 
 MIP = 3
+ORTHO_MIP = 5                    # OrthoModesConfig's default mip level
 CHUNK_T = 64                     # the offline path's chunk (run_offline_batched)
 LIVE_T = 64                      # frames of each live run
 LIVE_CHUNK = 8                   # the chunked live run's chunk_frames
+HTTP_TIMEOUT_S = 300             # a request to a served stream
+STALL_S = 10                     # a request slower than this prints stacks
+RUN_LIMIT_S = 1140               # the watchdog's limit on the whole run
+_deadline = None                 # main()'s start + RUN_LIMIT_S (monotonic)
 REALTIME_T = 90                  # frames of the paced real-time run
 # Published peaks of one H100 SXM at 700 W (NVIDIA's data sheet): HBM3
 # bandwidth, and f32 outside the tensor cores (the kernels' operations are
@@ -206,17 +237,19 @@ def bound(nbytes: float, ops: float):
 
 
 def entry(name, source, replaces, err, fn, plain_fn, nbytes, ops,
-          path, library_ms=None) -> dict:
+          path, library_ms=None, counter=None) -> dict:
     """A kernel's line: ``ms`` / ``plain_ms`` from CUDA events around a
     loop of calls (host launch gaps included), ``device_ms`` /
-    ``plain_device_ms`` from the profiler (device work only)."""
+    ``plain_device_ms`` from the profiler (device work only).  ``counter``
+    names the launch counter (:func:`kernel_modules`) where ``name`` less a
+    ``_t<T>`` suffix does not."""
     bound_ms, bound_by = bound(nbytes, ops)
     return dict(name=name, route="cuda", source=source, replaces=replaces,
                 launches=None, max_abs_err=err, ms=cuda_ms(fn),
                 plain_ms=cuda_ms(plain_fn), bound_ms=bound_ms,
                 bound_by=bound_by, library_ms=library_ms,
                 device_ms=device_ms(fn), plain_device_ms=device_ms(plain_fn),
-                path=path)
+                path=path, counter=counter or re.sub(r"_t\d+$", "", name))
 
 
 def timing(e: dict) -> str:
@@ -387,6 +420,34 @@ def phase_k1(smi: str) -> list:
         say(f"K1 mip_pool u8 [{T},{H},{W},3] mip {MIP}: sums exact, equal "
             f"to the plain version bit for bit; odd crop 3x1079x1917 at "
             f"levels 1 and 7 equal; {timing(e)}; {share(e)} ({smi})")
+        entries.append(e)
+    # The OrthoModes route (models.orthomodes.pixel_mip): mip 5, 1/255.
+    for T, path in ((1, "ortho_live_frame"), (CHUNK_T, "ortho_offline")):
+        frames = every[:T].contiguous()
+        planes = frames.permute(0, 3, 1, 2)
+        k2 = float(4 ** ORTHO_MIP)
+        if not torch.equal(pk.mip_pool(frames, ORTHO_MIP, scale=k2),
+                           pk.mip_pool_plain(planes, ORTHO_MIP, scale=k2)):
+            fail(f"K1 mip {ORTHO_MIP} T={T}: integer block sums differ")
+        got = pk.mip_pool(frames, ORTHO_MIP, scale=1.0 / 255.0)
+        ref = pk.mip_pool_plain(planes, ORTHO_MIP, scale=1.0 / 255.0)
+        if got.shape != (T, 3, H >> ORTHO_MIP, W >> ORTHO_MIP) or \
+                not bits_equal(got, ref):
+            fail(f"K1 mip {ORTHO_MIP} T={T}: differs from the plain "
+                 f"version (shape {tuple(got.shape)})")
+        out_n = T * 3 * (H >> ORTHO_MIP) * (W >> ORTHO_MIP)
+        e = entry(f"mip_pool_u8_l{ORTHO_MIP}_t{T}",
+                  "vaudio_torch/csrc/pool_kernel.cu",
+                  "vaudio/ops/pool_kernel.py:130",
+                  float((got - ref).abs().max()),
+                  lambda: pk.mip_pool(frames, ORTHO_MIP, scale=1.0 / 255.0),
+                  lambda: pk.mip_pool_plain(planes, ORTHO_MIP, 1.0 / 255.0),
+                  nbytes=T * H * W * 3 + 4 * out_n,
+                  ops=T * H * W * 3 + K1_EPILOGUE_OPS * out_n, path=path,
+                  counter="mip_pool_u8")
+        say(f"K1 mip_pool u8 [{T},{H},{W},3] mip {ORTHO_MIP} (the OrthoModes "
+            f"route): sums exact, equal to the plain version bit for bit; "
+            f"{timing(e)}; {share(e)} ({smi})")
         entries.append(e)
     return entries
 
@@ -701,14 +762,17 @@ def k4_err(name: str, got, ref) -> float:
 
 def phase_k4(smi: str) -> list:
     """K4 in both op orders (the frame order chained frame by frame, as
-    frame_step calls it), mono and stereo, at T = 1, 8 and 64 (and nfft
+    frame_step calls it, and at T frames in one call, as the OrthoModes
+    chunk step calls it), mono and stereo, at T = 1, 8 and 64 (and nfft
     8192, a hop that is not a multiple of 4, and T = 300, beyond one block
     of the kernel's frame loop) against the plain version on the card and
-    on the CPU; the edge frames; a T=64 chunk-order call equal to 64
-    chained T=1 calls and to a second call; one device kernel per wrapper
-    call.  Entries at the main paths' shapes: T=1 frame order
-    (``agc_overlap_add``, the live per-frame step), T=8 and T=64 chunk
-    order (the live chunks and the offline chunk)."""
+    on the CPU; the edge frames; T=64 calls in the chunk order and in the
+    frame order equal to 64 chained T=1 calls and to a second call; one
+    device kernel per wrapper call.  Entries at the main paths' shapes: T=1
+    frame order (``agc_overlap_add``, the live per-frame step), T=8 and
+    T=64 chunk order (the live chunks and the offline chunk), and the
+    frame order at T=8 and T=64, mono (the OrthoModes live chunks and
+    offline block)."""
     from torch.profiler import ProfilerActivity, profile
     from torch_frames import k4_args, k4_chained, k4_edge_frames, k4_forms
 
@@ -720,7 +784,7 @@ def phase_k4(smi: str) -> list:
                          (1000, (2,), (8,)), (4096, (2,), (300,))):
         for C in Cs:
             for T in Ts:
-                for order in ("frame", "chunk"):
+                for order in ("frame", "chunk", "frames"):
                     fn, plain, run = k4_forms(order)
                     args = k4_args(rng, T, C, nfft, "cuda")
                     got = run(fn, *args)
@@ -738,26 +802,30 @@ def phase_k4(smi: str) -> list:
     for rmax in (1.0, 1e-30, float("inf"), float("nan"), -1.0):
         scal = [torch.tensor(v, dtype=torch.float32, device="cuda")
                 for v in (rmax, 0.5, 0.2)]
-        for order in ("frame", "chunk"):
+        for order in ("frame", "chunk", "frames"):
             fn, plain, run = k4_forms(order)
             got = run(fn, sig, tail, window, *scal)
             k4_err(f"K4 edge frames {order} order running max {rmax}", got,
                    run(plain, sig, tail, window, *scal))
             if not bool(torch.isfinite(got[0]).all()):
                 fail(f"K4 edge frames {order}: pcm not finite")
-    args = k4_args(rng, CHUNK_T, 2, device="cuda")
-    full = ak.agc_overlap_add_chunk(*args)
-    if not all(bits_equal(a, b)
-               for a, b in zip(full, ak.agc_overlap_add_chunk(*args))):
-        fail(f"K4 T={CHUNK_T}: two calls differ")
-    if not all(bits_equal(a, b) for a, b in
-               zip(k4_chained(ak.agc_overlap_add_chunk, *args), full)):
-        fail(f"K4 T={CHUNK_T}: differs from {CHUNK_T} chained T=1 calls")
+    for C in (1, 2):
+        args = k4_args(rng, CHUNK_T, C, device="cuda")
+        for fn, one in ((ak.agc_overlap_add_chunk, ak.agc_overlap_add_chunk),
+                        (ak.agc_overlap_add_frames, k4_forms("frame")[0])):
+            full = fn(*args)
+            if not all(bits_equal(a, b) for a, b in zip(full, fn(*args))):
+                fail(f"K4 {fn.__name__} T={CHUNK_T}: two calls differ")
+            if not all(bits_equal(a, b) for a, b in
+                       zip(k4_chained(one, *args), full)):
+                fail(f"K4 {fn.__name__} C={C} T={CHUNK_T}: differs from "
+                     f"{CHUNK_T} chained T=1 calls")
     # The profiler can lose device records, never add any: every recorded
     # kernel must be K4's, at most two a wrapper call.
     one = [args[0][0]] + args[1:]
     for what, call in (("chunk", lambda: ak.agc_overlap_add_chunk(*args)),
-                       ("frame", lambda: ak.agc_overlap_add(*one))):
+                       ("frame", lambda: ak.agc_overlap_add(*one)),
+                       ("frames", lambda: ak.agc_overlap_add_frames(*args))):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(10):
                 call()
@@ -772,36 +840,43 @@ def phase_k4(smi: str) -> list:
         f"card and on the CPU, {exact} of them bit for bit on the card; "
         f"edge frames (zero, NaN, +-inf, FLT_MAX, denormal; running max 1, "
         f"1e-30, inf, NaN, -1) within 1e-6 and finite; T={CHUNK_T} equal to "
-        f"{CHUNK_T} chained T=1 calls and to a second call, bit for bit; "
-        f"{len(kernels) / 10:g} device kernels per call ({smi})")
+        f"{CHUNK_T} chained T=1 calls and to a second call, bit for bit, in "
+        f"the chunk order and in the frame order at T frames (mono and "
+        f"stereo); {len(kernels) / 10:g} device kernels per call ({smi})")
 
     entries = []
-    for T, order, path in ((1, "frame", "live_frame"),
-                           (LIVE_CHUNK, "chunk", "live_chunk"),
-                           (CHUNK_T, "chunk", "offline")):
-        args = k4_args(rng, T, 2, device="cuda")
+    # The OrthoModes chunk step's tail is mono, in the frame order at T.
+    for T, order, C, path in ((1, "frame", 2, "live_frame"),
+                              (LIVE_CHUNK, "chunk", 2, "live_chunk"),
+                              (CHUNK_T, "chunk", 2, "offline"),
+                              (LIVE_CHUNK, "frames", 1, "ortho_live_chunk"),
+                              (CHUNK_T, "frames", 1, "ortho_offline")):
+        args = k4_args(rng, T, C, device="cuda")
         if T == 1:       # the per-frame wrapper, as frame_step calls it
             one = [args[0][0]] + args[1:]
             fn = lambda: ak.agc_overlap_add(*one)               # noqa: E731
             plain_fn = lambda: ak.agc_overlap_add_plain(*one)   # noqa: E731
         else:
-            fn = lambda: ak.agc_overlap_add_chunk(*args)        # noqa: E731
-            plain_fn = lambda: ak.agc_overlap_add_chunk_plain(  # noqa: E731
-                *args)
-        err = k4_err(f"K4 T={T}", fn(), plain_fn())
-        nfft, C = 4096, 2
+            fn, plain_fn = (functools.partial(f, *args)
+                            for f in k4_forms(order)[:2])
+        err = k4_err(f"K4 {order} order T={T}", fn(), plain_fn())
+        nfft = 4096
         hop = nfft // 2
         # Read once: the signals, the tail's second half (all the kernel
         # and the function read of it), the window and three scalars;
         # written once: pcm, the new tail and the running max.
-        e = entry("agc_overlap_add" + ("" if T == 1 else f"_t{T}"),
+        e = entry("agc_overlap_add" + ("_frames" if order == "frames"
+                                       else "")
+                  + ("" if T == 1 else f"_t{T}"),
                   "vaudio_torch/csrc/audio_kernel.cu",
                   "vaudio/ops/audio_kernel.py:70", err, fn, plain_fn,
                   nbytes=4 * (T * C * nfft + C * hop + nfft + 3
                               + T * C * hop + C * nfft + 1),
-                  ops=T * (6 * C * nfft + C * hop), path=path)
-        say(f"K4 agc_overlap_add {order} order T={T} stereo nfft={nfft}: "
-            f"max_abs_err {err:.3e}; {timing(e)} ({smi})")
+                  ops=T * (6 * C * nfft + C * hop), path=path,
+                  counter="agc_overlap_add")
+        say(f"K4 agc_overlap_add {order} order T={T} "
+            f"{'stereo' if C == 2 else 'mono'} nfft={nfft}: max_abs_err "
+            f"{err:.3e}; {timing(e)} ({smi})")
         entries.append(e)
     return entries
 
@@ -1015,7 +1090,8 @@ def profiled(run) -> tuple:
 
 
 def profile_line(label: str, rows: dict, wall_ms: float, T: int,
-                 dispatches: int, smi: str) -> str:
+                 dispatches: int, smi: str,
+                 shape: str = "1080x1920 stereo") -> str:
     """The profile's line: wall and device busy per frame, the idle share,
     device events per frame, host-to-device copies per dispatch, and the
     events by kind."""
@@ -1026,7 +1102,7 @@ def profile_line(label: str, rows: dict, wall_ms: float, T: int,
     table = ", ".join(f"{k} {n / T:.2f}/frame {us / 1e3 / T:.4f} ms"
                       for k, (n, us) in sorted(rows.items(),
                                                key=lambda r: -r[1][1]))
-    return (f"profile: {label}, {T} frames 1080x1920 stereo: wall "
+    return (f"profile: {label}, {T} frames {shape}: wall "
             f"{wall_ms / T:.3f} ms/frame, device busy {busy_ms / T:.4f} "
             f"ms/frame ({100 * busy_ms / wall_ms:.1f}% of the wall, idle "
             f"{100 - 100 * busy_ms / wall_ms:.1f}%), "
@@ -1110,20 +1186,52 @@ def phase_native(smi: str) -> None:
         f"{path} ({smi})")
 
 
-def http_json(url: str, body=None, timeout: float = 60):
+def http_json(url: str, body=None, timeout: float = HTTP_TIMEOUT_S):
     """GET (``body`` None) or POST ``body`` (bytes, or an object sent as
     JSON) to ``url``: (status, the JSON or raw reply)."""
     if body is not None and not isinstance(body, bytes):
         body = json.dumps(body).encode()
     req = urllib.request.Request(url, data=body,
                                  method="GET" if body is None else "POST")
-    try:
-        with urllib.request.urlopen(req, timeout=timeout) as r:
-            status, data, ctype = r.status, r.read(), r.headers.get(
-                "Content-Type", "")
-    except urllib.error.HTTPError as e:
-        status, data, ctype = e.code, e.read(), "application/json"
+    with stacks_on_stall(url):
+        try:
+            with urllib.request.urlopen(req, timeout=timeout) as r:
+                status, data, ctype = r.status, r.read(), r.headers.get(
+                    "Content-Type", "")
+        except urllib.error.HTTPError as e:
+            status, data, ctype = e.code, e.read(), "application/json"
     return status, (json.loads(data) if "json" in ctype else data)
+
+
+@contextlib.contextmanager
+def stacks_on_stall(what: str):
+    """Print every thread's stack to stderr when a request to the served
+    stream takes more than ``STALL_S`` (faulthandler's own thread prints
+    it, with no need of the GIL) and again when it fails other than by an
+    HTTP status (a timeout, a reset), so that a stall names the thread it
+    waited on.  Re-arms the whole run's watchdog after."""
+    faulthandler.dump_traceback_later(STALL_S, file=sys.stderr)
+    try:
+        yield
+    except (urllib.error.URLError, OSError):
+        print(f"chip_smoke: {what}: no answer; every thread's stack:",
+              file=sys.stderr, flush=True)
+        faulthandler.dump_traceback(file=sys.stderr, all_threads=True)
+        raise
+    finally:
+        arm_watchdog()
+
+
+def arm_watchdog() -> None:
+    """Until ``RUN_LIMIT_S`` after the start of main(): at the limit,
+    print every thread's stack and exit non-zero (a hang ends the run with
+    its cause, inside the caller's time limit)."""
+    if _deadline is None:
+        faulthandler.cancel_dump_traceback_later()
+    else:
+        faulthandler.dump_traceback_later(
+            max(1.0, _deadline - time.monotonic()), exit=True,
+            file=sys.stderr)
 
 
 def post_i420(url: str, clip, t: int) -> None:
@@ -1145,7 +1253,8 @@ def push_clip(url: str, clip) -> None:
             post_i420(url, clip, t)
         http_json(url + "push", {"close": True})
     else:
-        push_frames(url, None, clip, timeout=60)
+        with stacks_on_stall(url + "frames"):
+            push_frames(url, None, clip, timeout=HTTP_TIMEOUT_S)
 
 
 def wait_stream_end(aur, timeout: float, what: str) -> None:
@@ -1417,8 +1526,9 @@ def phase_paced(frames: np.ndarray, smi: str) -> None:
         aur.start()
         listener.start()
         t0 = time.perf_counter()
-        sent = push_frames(srv.url, None, frames[:REALTIME_T],
-                           fps=cfg.video_fps, timeout=60)
+        with stacks_on_stall(srv.url + "frames"):
+            sent = push_frames(srv.url, None, frames[:REALTIME_T],
+                               fps=cfg.video_fps, timeout=HTTP_TIMEOUT_S)
         push_s = time.perf_counter() - t0
         wait_stream_end(aur, 120, "paced serve")
         m = aur.metrics
@@ -1448,10 +1558,324 @@ def phase_paced(frames: np.ndarray, smi: str) -> None:
         f"{np.abs(pcm).max()} ({smi})")
 
 
+# ---------------------------------------------------------------------------
+# The OrthoModes family
+# ---------------------------------------------------------------------------
+
+# Operations per (frame, bin, oscillator) of the plain Hann x Lorentzian
+# synthesis (models.orthomodes.peak_spectra): the distance (2), the Hann
+# lobe (hann_sinc_peak_fast, 25) and its scale (1), the Lorentzian (lambda
+# d, its square, 1 +, the divide: 4), their product (1) and the contraction
+# with the two weight columns (4).
+ORTHO_PEAK_OPS = 37
+
+
+def ortho_config():
+    """The OrthoModes phases' AuralizerConfig: stereo 48 kHz as asked, which
+    the engine coerces to mono and unfiltered."""
+    from vaudio_torch.config import AuralizerConfig
+    return AuralizerConfig(sample_rate=48000.0, channels=2,
+                           ring_buffer_frames=LIVE_T + 8)
+
+
+def ortho_by_pattern(clip, pattern, cfg, params=None):
+    """The OrthoModes model's steps on the card with a stream's dispatches:
+    a chunk of n > 1 frames through ``chunk_step``, a single frame through
+    ``frame_step``, the carry chained; mono PCM as numpy."""
+    from vaudio_torch.config import LiveParams
+    from vaudio_torch.runtime.engine import OrthoModesEngine
+    engine = OrthoModesEngine(cfg, device="cuda")
+    model = engine.model
+    params = params or engine.params_arrays(LiveParams())
+    carry = model.init_carry(model.num_oscillators(*clip.shape[1:3]))
+    outs, start = [], 0
+    for n in pattern:
+        if n == 1:
+            carry, pcm = model.frame_step(carry, clip[start], params)
+        else:
+            carry, pcm, _ = model.chunk_step(carry, clip[start:start + n],
+                                             params)
+        outs.append(pcm.reshape(-1))
+        start += n
+    return torch.cat(outs).cpu().numpy()
+
+
+def ortho_checks(what: str, launches: dict, dispatches: int) -> None:
+    """Fail unless K1's interleaved entry and K4 launched once a dispatch
+    and no other kernel launched."""
+    want = {k: 0 for k in launches}
+    want.update(mip_pool_u8=dispatches, agc_overlap_add=dispatches)
+    if launches != want:
+        fail(f"{what}: launches {launches}, expected {want} ({dispatches} "
+             f"dispatches)")
+
+
+def phase_ortho_offline(frames: np.ndarray, smi: str) -> float:
+    """``Auralizer(model="orthomodes").sonify`` on 64 1080p frames, from
+    host and from device frames: launch counts (K1 and K4 once for the
+    block of 64), the PCM finite and audible, a profile of the run; the
+    256x256 crop on the card against the port on the CPU (PCM within
+    1e-4); the plain synthesis's device time per frame beside its bound.
+    Returns the launch counts of the host-frame run."""
+    from vaudio_torch.api import Auralizer
+    from vaudio_torch.models import orthomodes
+    cfg = ortho_config()
+    T, H, W = frames.shape[:3]
+    aur = Auralizer(config=cfg, model="orthomodes", device="cuda")
+    if aur.config.channels != 1:
+        fail("orthomodes: the config was not coerced to mono")
+    aur.sonify(frames)                              # warm-up
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    audio = aur.sonify(frames)
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    ortho_checks("orthomodes offline", launches, -(-T // CHUNK_T))
+    if audio.shape != (T * cfg.hop_size,) or not np.all(np.isfinite(audio)) \
+            or not np.abs(audio).max() > 1e-3:
+        fail(f"orthomodes offline: PCM of shape {audio.shape} not finite or "
+             f"silent")
+    dev_clip = torch.as_tensor(frames, device="cuda")
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    again = aur.sonify(dev_clip)
+    wall_dev = time.perf_counter() - t1
+    if not np.array_equal(again, audio):
+        fail("orthomodes offline: device frames give other PCM than host "
+             "frames")
+    rows, wall_ms = profiled(lambda: aur.sonify(dev_clip))
+    say(f"orthomodes offline: Auralizer(model='orthomodes').sonify {T} "
+        f"frames {H}x{W} at mip {ORTHO_MIP} ({(H >> ORTHO_MIP) * (W >> ORTHO_MIP)}"
+        f" oscillators), 48 kHz mono: {1e3 * wall / T:.3f} ms/frame from "
+        f"host frames, {1e3 * wall_dev / T:.3f} ms/frame from device frames "
+        f"({smi}); launches {launches}")
+    say(profile_line("orthomodes offline from device frames", rows, wall_ms,
+                     T, 1, smi, f"{H}x{W} mono"))
+    crop = crop256(frames)
+    pcm = {d: Auralizer(config=cfg, model="orthomodes", device=d).sonify(
+        crop) for d in ("cuda", "cpu")}
+    err = float(np.abs(pcm["cuda"] - pcm["cpu"]).max())
+    if not err <= 1e-4 or not np.abs(pcm["cpu"]).max() > 1e-3:
+        fail(f"orthomodes offline 256x256 crop: PCM card vs CPU differs by "
+             f"{err:.3e} (or is silent)")
+    say(f"orthomodes offline: {T}-frame 256x256 crop card vs CPU: PCM max "
+        f"diff {err:.3e} (band 1e-4) ({smi})")
+
+    model = aur._engine.model
+    params = orthomodes.params_on(model.default_params(), "cuda")
+    amp, q, f0 = orthomodes.extract_pixel_modes(dev_clip[:16], params,
+                                                model.cfg)
+    P, F = f0.shape[1], model.cfg.num_bins
+    consts = model._consts(P)
+    phases = torch.remainder(f0 * 0.29, 6.28)       # any phases will do
+    for n in (1, 16):
+        def synth():
+            return orthomodes.peak_spectra(amp[:n], q[:n], f0[:n],
+                                           phases[:n], model.cfg, consts)
+        dev_ms = device_ms(synth)
+        ev_ms = cuda_ms(synth)
+        b_ms, b_by = bound(4 * (4 * n * P + 3 * F + P + 2 * n * F),
+                           n * F * P * ORTHO_PEAK_OPS)
+        say(f"orthomodes synthesis (plain PyTorch, models.orthomodes."
+            f"peak_spectra) T={n} F={F} P={P}: {dev_ms / n:.4f} ms/frame on "
+            f"the device ({ev_ms / n:.4f} from events), bound "
+            f"{b_ms / n:.6f} ms/frame ({b_by}, {ORTHO_PEAK_OPS} operations "
+            f"a peak), share of the bound {100 * b_ms / dev_ms:.2f}% "
+            f"({smi})")
+    return launches
+
+
+def phase_ortho_live(frames: np.ndarray, smi: str) -> dict:
+    """The OrthoModes live stream on 64 1080p frames, per frame and in
+    chunks of 8: launch counts (K1 and K4 once a dispatch), the PCM equal
+    bit for bit to the model's steps on the card with the stream's
+    dispatches; then 16 frames of each under torch.profiler.  Returns the
+    counts by path."""
+    from vaudio_torch.api import Auralizer
+    cfg = ortho_config()
+    clip = frames[:LIVE_T]
+    H, W = clip.shape[1:3]
+    counts = {}
+    for chunk, path in ((1, "ortho_live_frame"),
+                        (LIVE_CHUNK, "ortho_live_chunk")):
+        Auralizer(source=clip[:LIVE_CHUNK], config=cfg, model="orthomodes",
+                  device="cuda", chunk_frames=chunk).run_until_exhausted(
+                      timeout=300)                  # warm-up
+        aur = Auralizer(source=clip, config=cfg, model="orthomodes",
+                        device="cuda", chunk_frames=chunk)
+        reset_counts()
+        t0 = time.perf_counter()
+        aur.run_until_exhausted(timeout=300)
+        wall = time.perf_counter() - t0
+        counts[path] = launches = read_counts()
+        m = aur.metrics
+        if m["frames_processed"] != LIVE_T or m["dropped_frames"]:
+            fail(f"orthomodes live chunk_frames={chunk}: {m}")
+        ortho_checks(f"orthomodes live chunk_frames={chunk}", launches,
+                     m["dispatches"])
+        got = aur.pull(LIVE_T * cfg.hop_size)
+        pattern = [chunk] * (LIVE_T // chunk)
+        ref = ortho_by_pattern(clip, pattern, aur.config)
+        if not np.array_equal(got, ref) or not np.abs(got).max() > 1e-3:
+            fail(f"orthomodes live chunk_frames={chunk}: the pulled PCM "
+                 f"differs from the model's steps on the card by "
+                 f"{np.abs(got - ref).max():.3e} (or is silent)")
+        say(f"orthomodes live: Auralizer(model='orthomodes')"
+            f".run_until_exhausted {LIVE_T} frames {H}x{W} 48 kHz mono "
+            f"chunk_frames={chunk}: {1e3 * wall / LIVE_T:.3f} ms/frame, "
+            f"latency p50 {m['latency_p50_ms']:.3f} ms p99 "
+            f"{m['latency_p99_ms']:.3f} ms; PCM equal to the model's steps "
+            f"on the card with the stream's dispatches; launches {launches}"
+            f" in {m['dispatches']} dispatches ({smi})")
+    for chunk in (1, LIVE_CHUNK):
+        aur = Auralizer(source=clip[:16], config=cfg, model="orthomodes",
+                        device="cuda", chunk_frames=chunk)
+        rows, wall_ms = profiled(lambda: aur.run_until_exhausted(
+            timeout=300))
+        say(profile_line(f"orthomodes live chunk_frames={chunk}", rows,
+                         wall_ms, 16, aur.metrics["dispatches"], smi,
+                         f"{H}x{W} mono"))
+    return counts
+
+
+def serve_ortho(clip, cfg, state=None, log=None, before_push=None):
+    """A served OrthoModes stream fed ``clip`` over ``POST /frames`` (.npy
+    bodies, the push stream closed at the end), after restoring ``state``
+    (a /state.npz body) when given: (pcm, the /state.npz body at the end,
+    metrics, launches, whatever ``before_push(url)`` returned)."""
+    from vaudio_torch.api import Auralizer
+    from vaudio_torch.io import PushSource
+    ps = PushSource(maxsize=LIVE_T, when_empty="block")
+    aur = Auralizer(source=ps, config=cfg, model="orthomodes",
+                    device="cuda", metrics_log=log, debug=True)
+    srv = aur.serve(port=0)
+    try:
+        if state is not None:
+            status, reply = http_json(srv.url + "state.npz", state)
+            if status != 200:
+                fail(f"orthomodes serve: POST /state.npz {status} {reply}")
+        reset_counts()
+        aur.start()
+        early = before_push(srv.url) if before_push else None
+        push_clip(srv.url, clip)
+        wait_stream_end(aur, 300, "orthomodes serve")
+        launches = read_counts()
+        status, saved = http_json(srv.url + "state.npz")
+        if status != 200:
+            fail(f"orthomodes serve: GET /state.npz {status}")
+        m = aur.metrics
+        if m["frames_processed"] != len(clip) or ps.dropped or \
+                m["dropped_frames"]:
+            fail(f"orthomodes serve: {m}, queue {ps.state()}")
+        pcm = aur.pull(len(clip) * cfg.hop_size)
+    finally:
+        srv.stop()
+        aur.stop()
+    return pcm, saved, m, launches, early
+
+
+def phase_ortho_serve(frames: np.ndarray, smi: str) -> dict:
+    """64 .npy RGB frames through ``LiveServer`` ``POST /frames`` into a
+    served OrthoModes stream: /state.npz answered 409 before the first
+    frame, an I420 body 400, the spectrum and waveform views rendered (no
+    hue view: 404), K1 and K4 once a dispatch, the PCM equal to the model's
+    steps on the card; then /state.npz taken after 32 frames and restored
+    into a fresh served stream: the continued PCM equals the uninterrupted
+    run bit for bit.  Returns the counts of the whole run."""
+    cfg = ortho_config()
+    clip = frames[:LIVE_T]
+    H, W = clip.shape[1:3]
+
+    def door_checks(url):
+        status, reply = http_json(url + "state.npz")
+        if status != 409 or "carry" not in reply.get("error", ""):
+            fail(f"orthomodes serve: /state.npz before the first frame "
+                 f"answered {status} {reply}")
+        status, reply = http_json(f"{url}frames?w={W}&h={H}&fmt=i420",
+                                  bytes(H * W * 3 // 2))
+        if status != 400 or "RGB-only" not in reply.get("error", ""):
+            fail(f"orthomodes serve: an I420 body answered {status} {reply}")
+        return reply["error"]
+
+    with tempfile.TemporaryDirectory() as tmp:
+        log = os.path.join(tmp, "dispatches.jsonl")
+        t0 = time.perf_counter()
+        pcm, _, m, launches, i420 = serve_ortho(clip, cfg, log=log,
+                                                before_push=door_checks)
+        wall = time.perf_counter() - t0
+        pattern = [json.loads(line)["frames"] for line in open(log)]
+    ortho_checks("orthomodes serve", launches, len(pattern))
+    ref = ortho_by_pattern(clip, pattern, cfg)
+    if not np.array_equal(pcm, ref) or not np.abs(pcm).max() > 1e-3:
+        fail(f"orthomodes serve: the pulled PCM differs from the model's "
+             f"steps on the card by {np.abs(pcm - ref).max():.3e}")
+    half = LIVE_T // 2
+    first, saved, _, _, _ = serve_ortho(clip[:half], cfg)
+    second, _, _, _, _ = serve_ortho(clip[half:], cfg, state=saved)
+    if not np.array_equal(np.concatenate([first, second]), pcm):
+        fail("orthomodes serve: the PCM continued from /state.npz differs "
+             "from the uninterrupted run")
+    say(f"orthomodes serve: {LIVE_T} .npy RGB frames {H}x{W} through "
+        f"POST /frames ({len(pattern)} dispatches): {1e3 * wall / LIVE_T:.3f}"
+        f" ms/frame from the first push to the stream's end; latency p50 "
+        f"{m['latency_p50_ms']:.3f} ms p99 {m['latency_p99_ms']:.3f} ms; "
+        f"PCM equal to the model's steps on the card; /state.npz 409 before "
+        f"the first frame; I420 400 ({i420[:40]}...); /state.npz "
+        f"({len(saved)} B) after {half} frames restored into a fresh served "
+        f"stream: PCM equal to the uninterrupted run; launches {launches} "
+        f"({smi})")
+    return {"ortho_serve": launches}
+
+
+def phase_ortho_resolution(frames: np.ndarray, smi: str) -> None:
+    """A resolution change mid-stream (8 frames of 1080p, then 8 of 720p)
+    re-inits the frame-sized carry: counted, and the 720p part's PCM equal
+    to a cold run on it; a 720p checkpoint restored into a 1080p stream
+    fails with carry_mismatch's message."""
+    from vaudio_torch.api import Auralizer
+    cfg = ortho_config()
+    big = frames[:8]
+    small = np.ascontiguousarray(frames[8:16, :720, :1280])
+    aur = Auralizer(source=list(big) + list(small), config=cfg,
+                    model="orthomodes", device="cuda")
+    aur.run_until_exhausted(timeout=300)
+    m = aur.metrics
+    if m["resolution_changes"] != 1 or m["frames_processed"] != 16:
+        fail(f"orthomodes resolution change: {m}")
+    pcm = aur.pull(16 * cfg.hop_size)
+    ref = ortho_by_pattern(small, [1] * 8, aur.config)
+    if not np.array_equal(pcm[8 * cfg.hop_size:], ref):
+        fail("orthomodes resolution change: the 720p part differs from a "
+             "cold run on it")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "720p.npz")
+        aur.save_state(path)
+        aur.stop()
+        wrong = Auralizer(source=big[:2], config=cfg, model="orthomodes",
+                          device="cuda")
+        wrong.load_state(path)
+        try:
+            wrong.run_until_exhausted(timeout=300)
+        except RuntimeError as e:
+            msg = str(e.__cause__)
+        else:
+            fail("orthomodes: a 720p checkpoint ran on 1080p frames")
+        if "oscillators" not in msg:
+            fail(f"orthomodes: wrong-resolution restore failed with {msg}")
+    say(f"orthomodes resolution change: 8 frames 1080x1920 then 8 at "
+        f"720x1280: resolution_changes {m['resolution_changes']}, the 720p "
+        f"part equal to a cold run; a 720p checkpoint on 1080p frames: "
+        f"{msg} ({smi})")
+
+
 def main() -> None:
+    global _deadline
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke test runs "
              "only on a GPU")
+    _deadline = time.monotonic() + RUN_LIMIT_S
+    arm_watchdog()
     import vaudio_torch  # noqa: F401  (fails outside the repository)
     sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
     from torch_frames import structured_frames, structured_yuv_frames
@@ -1487,12 +1911,17 @@ def main() -> None:
     phase_debug(frames[:CHUNK_T], smi)
     phase_realtime(frames, smi)
     phase_paced(frames, smi)
+    counts["ortho_offline"] = phase_ortho_offline(frames[:CHUNK_T], smi)
+    counts.update(phase_ortho_live(frames, smi))
+    counts.update(phase_ortho_serve(frames, smi))
+    phase_ortho_resolution(frames, smi)
     for k in kernels:
-        base = re.sub(r"_t\d+$", "", k["name"])
+        base = k.pop("counter")
         k["launches"] = counts[k["path"]][base]
         k["launches_by_path"] = {p: c[base] for p, c in counts.items()}
     say(smi)
     say(json.dumps({"kernels": kernels}))
+    faulthandler.cancel_dump_traceback_later()
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

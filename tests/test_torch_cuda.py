@@ -351,20 +351,21 @@ def assert_k4_close(got, ref):
 @pytest.mark.parametrize("nfft", [4096, 8192, 1000])
 @pytest.mark.parametrize("T", [1, 8, 64, 300])
 @pytest.mark.parametrize("channels", [1, 2])
-@pytest.mark.parametrize("order", ["chunk", "frame"])
+@pytest.mark.parametrize("order", ["chunk", "frame", "frames"])
 def test_k4_chunk_matches_plain(dev, gen, order, channels, T, nfft):
     """K4 in both op orders (the frame order chained frame by frame, as
-    frame_step calls it), mono and stereo, at the live (1, 8) and offline
+    frame_step calls it, and at T frames in one call, as the OrthoModes
+    chunk step calls it), mono and stereo, at the live (1, 8) and offline
     (64) T and beyond one block of frames (300), at nfft 4096, above it,
     and at a hop that is not a multiple of 4 (scalar loads): one launch a
-    chunk in the chunk order, one a frame in the frame order; within the
-    band of assert_k4_close of the plain version on the card and of the
+    chunk in the chunk order and at T frames, one a frame chained; within
+    the band of assert_k4_close of the plain version on the card and of the
     plain version on the CPU."""
     fn, plain, run = k4_forms(order)
     args = k4_args(gen, T, channels, nfft, device=dev)
     before = audio_kernel.launches
     got = run(fn, *args)
-    assert audio_kernel.launches == before + (1 if order == "chunk" else T)
+    assert audio_kernel.launches == before + (T if order == "frame" else 1)
     assert_k4_close(got, run(plain, *args))
     cpu = run(plain, *(x.cpu() for x in args))
     assert_k4_close([x.cpu() for x in got], cpu)
@@ -385,7 +386,7 @@ def sigmoid_normalize_true_division(x, M, k: float = 2.0):
 
 @pytest.mark.parametrize("T", [1, 8, 64])
 @pytest.mark.parametrize("channels", [1, 2])
-@pytest.mark.parametrize("order", ["chunk", "frame"])
+@pytest.mark.parametrize("order", ["chunk", "frame", "frames"])
 def test_k4_is_bit_exact_against_true_division(dev, gen, monkeypatch, order,
                                                channels, T):
     """With the plain versions' one Python-scalar division made a true
@@ -401,13 +402,14 @@ def test_k4_is_bit_exact_against_true_division(dev, gen, monkeypatch, order,
 
 
 @pytest.mark.parametrize("rmax", [1.0, 0.3, 1e-30, np.inf, np.nan, -1.0])
-@pytest.mark.parametrize("order", ["chunk", "frame"])
+@pytest.mark.parametrize("order", ["chunk", "frame", "frames"])
 def test_k4_edge_frames_match_plain(dev, gen, order, rmax):
     """The edge frames in one chunk (chained in the frame order), after a
     carried running max that is ordinary, tiny, infinite, NaN or negative
     (norm 0): the kernel's one reduction a frame gives the plain version's
-    two, NaN where it has NaN (only the running max can be); in the chunk
-    order the chunk equals its frames chained one by one, bit for bit."""
+    two, NaN where it has NaN (only the running max can be); in one call
+    (the chunk order, the frame order at T frames) the chunk equals its
+    frames chained one by one, bit for bit."""
     fn, plain, run = k4_forms(order)
     sig = torch.as_tensor(k4_edge_frames(gen), device=dev)
     tail = torch.as_tensor(gen.normal(size=(2, 4096)).astype(np.float32),
@@ -419,7 +421,7 @@ def test_k4_edge_frames_match_plain(dev, gen, order, rmax):
     got = run(fn, *args)
     assert_k4_close(got, run(plain, *args))
     assert bool(torch.isfinite(got[0]).all())
-    if order == "chunk":
+    if order != "frame":
         assert all(bits_equal(a, b)
                    for a, b in zip(k4_chained(fn, *args), got))
 
@@ -744,3 +746,101 @@ def test_debug_surface_on_the_card(dev):
     np.testing.assert_array_equal(got["hues"], ref["hues"])
     for name in ref:
         np.testing.assert_allclose(got[name], ref[name], atol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# The OrthoModes family on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("T,H,W", [(1, 1080, 1920), (8, 1080, 1920),
+                                   (2, 1079, 1917), (3, 190, 250)])
+def test_k1_at_the_ortho_level_matches_plain(dev, gen, T, H, W):
+    """K1's interleaved entry at mip 5 with the 1/255 scale (the OrthoModes
+    route, orthomodes.pixel_mip): equal to the plain version of the
+    transposed planes bit for bit, one launch a call."""
+    from vaudio_torch.models import orthomodes
+    frames = torch.as_tensor(gen.integers(0, 256, (T, H, W, 3),
+                                          dtype=np.uint8), device=dev)
+    before = pool_kernel.launches
+    got = orthomodes.pixel_mip(frames, 5)
+    assert pool_kernel.launches == before + 1
+    ref = pool_kernel.mip_pool_plain(frames.permute(0, 3, 1, 2), 5,
+                                     1 / 255.0)
+    assert got.shape == (T, 3, H >> 5, W >> 5) and bits_equal(got, ref)
+
+
+@pytest.mark.parametrize("T", [8, 64])
+@pytest.mark.parametrize("channels", [1, 2])
+def test_k4_frames_equal_chained_frame_calls(dev, gen, channels, T):
+    """K4's frame order at T frames equals T chained one-frame calls of
+    agc_overlap_add and a second call, bit for bit."""
+    fn = audio_kernel.agc_overlap_add_frames
+    args = k4_args(gen, T, channels, device=dev)
+    got = fn(*args)
+    assert all(bits_equal(a, b) for a, b in zip(got, fn(*args)))
+    chained = k4_chained(k4_forms("frame")[0], *args)
+    assert all(bits_equal(a, b) for a, b in zip(chained, got))
+
+
+def ortho_frames(T=8, H=192, W=256):
+    return structured_frames(21, T, H, W)
+
+
+def test_ortho_steps_on_the_card_match_the_cpu(dev):
+    """The OrthoModes frame step and chunk step on the card against the
+    port on the CPU: PCM within 1e-4 (the main path's card-vs-CPU band),
+    one K1 and one K4 launch a chunk, one of each a frame."""
+    from vaudio_torch.models import OrthoModesConfig, OrthoModesModel
+    frames = ortho_frames()
+    params = OrthoModesModel(device="cpu").default_params()
+    pcm = {}
+    for where in (dev, torch.device("cpu")):
+        model = OrthoModesModel(OrthoModesConfig(), device=where)
+        P = model.num_oscillators(192, 256)
+        before = (pool_kernel.launches, audio_kernel.launches)
+        carry, chunk_pcm, _ = model.chunk_step(model.init_carry(P), frames,
+                                               params)
+        steps = []
+        for frame in frames:
+            carry, one = model.frame_step(carry, frame, params)
+            steps.append(one)
+        after = (pool_kernel.launches - before[0],
+                 audio_kernel.launches - before[1])
+        assert after == ((9, 9) if where.type == "cuda" else (0, 0))
+        pcm[where.type] = torch.cat([chunk_pcm.reshape(-1),
+                                     torch.stack(steps).reshape(-1)]).cpu()
+    assert bool(torch.isfinite(pcm["cuda"]).all())
+    assert float(pcm["cpu"].abs().max()) > 0.1
+    torch.testing.assert_close(pcm["cuda"], pcm["cpu"], rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("chunk_frames", [1, 4])
+def test_ortho_live_stream_on_the_card_equals_offline(dev, chunk_frames):
+    """Auralizer(model="orthomodes") streamed on the card: the pulled PCM
+    equals the model's steps on the card with the stream's dispatches (10
+    frames: per frame, or two chunks of 4 and two single steps), bit for
+    bit; K1 and K4 once a dispatch."""
+    from vaudio_torch.models import OrthoModesConfig, OrthoModesModel
+    frames = ortho_frames(T=10)
+    before = (pool_kernel.launches, audio_kernel.launches)
+    aur = Auralizer(source=frames, model="orthomodes", device=dev,
+                    chunk_frames=chunk_frames)
+    aur.run_until_exhausted(timeout=60)
+    aur.raise_if_failed()
+    dispatches = aur.metrics["dispatches"]
+    assert (pool_kernel.launches - before[0],
+            audio_kernel.launches - before[1]) == (dispatches, dispatches)
+    got = aur.pull(10 * 2048)
+    model = OrthoModesModel(OrthoModesConfig(audio=aur.config), device=dev)
+    params = aur._engine.params_arrays(aur.params)
+    carry = model.init_carry(model.num_oscillators(192, 256))
+    ref = []
+    main = 0 if chunk_frames == 1 else 8
+    for start in range(0, main, chunk_frames):
+        carry, pcm, _ = model.chunk_step(
+            carry, frames[start:start + chunk_frames], params)
+        ref.append(pcm.reshape(-1))
+    for frame in frames[main:]:
+        carry, pcm = model.frame_step(carry, frame, params)
+        ref.append(pcm)
+    np.testing.assert_array_equal(got, torch.cat(ref).cpu().numpy())

@@ -270,6 +270,31 @@ def test_k4_chunk_plain_equals_chained_frames(rng, channels):
     assert torch.equal(bits(rm), bits(new_max))
 
 
+@pytest.mark.parametrize("T", [1, 8])
+@pytest.mark.parametrize("channels", [1, 2])
+def test_k4_frames_plain_equals_chained_frames(rng, channels, T):
+    """K4's frame order at T frames (the OrthoModes chunk step's tail): the
+    plain version on T frames equals T chained one-frame calls of
+    ``agc_overlap_add`` (as frame_step calls it), carrying the running max
+    and the tail, bit for bit; and so the unfused agc_normalize +
+    overlap_add of the JAX OrthoModes step."""
+    from vaudio_torch.dsp.core import agc_normalize, overlap_add
+    args = k4_args(rng, T, channels)
+    pcm, new_tail, new_max = audio_kernel.agc_overlap_add_frames(*args)
+    assert pcm.shape == (T, 2048) + ((channels,) if channels > 1 else ())
+    chained = k4_chained(k4_forms("frame")[0], *args)
+    for a, b in zip((pcm, new_tail, new_max), chained):
+        assert torch.equal(bits(a), bits(b))
+    sig, tail, window, rmax, att, rel = args
+    for k in range(T):
+        norm, rmax = agc_normalize(sig[k], rmax, att, rel)
+        out, tail = overlap_add(norm, tail, window)
+        assert torch.equal(bits(out if channels == 1 else out.T),
+                           bits(pcm[k]))
+    assert torch.equal(bits(tail), bits(new_tail))
+    assert torch.equal(bits(rmax), bits(new_max))
+
+
 # Carried running maxima: ordinary, tiny, infinite, NaN, and negative (which
 # drives the sigmoid below g(0): norm = 0, so peak / norm = inf).
 K4_EDGE_RMAX = [1.0, 0.3, 1e-30, np.inf, np.nan, -1.0]
@@ -348,6 +373,8 @@ def test_cpu_tensors_take_the_plain_versions_without_counting(rng):
                                  torch.tensor(1.0), torch.tensor(1.0))
     audio_kernel.agc_overlap_add_chunk(z[None], z, z, torch.tensor(1.0),
                                        torch.tensor(1.0), torch.tensor(1.0))
+    audio_kernel.agc_overlap_add_frames(z[None], z, z, torch.tensor(1.0),
+                                        torch.tensor(1.0), torch.tensor(1.0))
     assert [m.launches for m in mods] == before
     assert (pool_kernel.planar_launches, pool_kernel.yuv_launches) == \
         k1_before
@@ -377,6 +404,9 @@ def test_wrappers_raise_for_a_device_without_kernel():
             (), device="meta") for _ in range(3)))
     with pytest.raises(ValueError, match="no kernel"):
         audio_kernel.agc_overlap_add_chunk(sig[None], sig, sig, *(
+            torch.empty((), device="meta") for _ in range(3)))
+    with pytest.raises(ValueError, match="no kernel"):
+        audio_kernel.agc_overlap_add_frames(sig[None], sig, sig, *(
             torch.empty((), device="meta") for _ in range(3)))
 
 

@@ -233,7 +233,8 @@ def test_jax_carry_resumes_in_the_port():
 def test_import_and_slice_leave_jax_out(tmp_path):
     """vaudio_torch imports neither jax nor the JAX package: checked in a
     fresh interpreter after the offline slice (RGB, a planar YUV dict and a
-    debug run), a short stream with both kernel paths on, and the serving
+    debug run), a short stream with both kernel paths on, the OrthoModes
+    family offline and streamed in chunks, and the serving
     path: frames pushed over HTTP into a served PushSource stream (the C++
     ring), the control channel, the live debug surface, the debug views,
     a checkpoint over HTTP and the native frame reader; with TF32 off."""
@@ -263,6 +264,12 @@ def test_import_and_slice_leave_jax_out(tmp_path):
         assert aur.pull(4 * 2048 * 2).shape == (4 * 2048 * 2,)
         assert not torch.backends.cuda.matmul.allow_tf32
         assert not torch.backends.cudnn.allow_tf32
+        ortho = Auralizer(config=cfg, model="orthomodes", device="cpu")
+        assert ortho.sonify(frames).shape == (8 * 2048,)
+        aur = Auralizer(source=frames[:4], config=cfg, model="orthomodes",
+                        device="cpu", chunk_frames=2)
+        aur.run_until_exhausted(timeout=60)
+        assert aur.pull(4 * 2048).shape == (4 * 2048,)
 
         import io, time, urllib.request
         from vaudio_torch.io import PushSource, RawVideoSource
@@ -351,14 +358,17 @@ def test_flags_outside_the_slice_raise(flag):
 
 
 def test_inputs_outside_the_slice_raise():
-    """What stays unported raises naming its ROADMAP item (the orthomodes
-    model, the only entry of _NOT_PORTED); an unknown sonify mode is a
-    ValueError."""
+    """The orthomodes model, the last entry of the registry of unported
+    features (_NOT_PORTED), is ported and the registry is gone; an unknown
+    model family and an unknown sonify mode are ValueErrors."""
     import vaudio_torch
     cfg = AuralizerConfig()
     aur = Auralizer(config=cfg, device="cpu")
-    assert list(vaudio_torch._NOT_PORTED) == ["the orthomodes model"]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Auralizer(config=cfg, model="orthomodes", device="cpu")
+    assert not hasattr(vaudio_torch, "_NOT_PORTED")
+    assert not hasattr(vaudio_torch, "not_ported")
+    assert Auralizer(config=cfg, model="orthomodes",
+                     device="cpu").model == "orthomodes"
+    with pytest.raises(ValueError, match="unknown model family"):
+        Auralizer(config=cfg, model="cells", device="cpu")
     with pytest.raises(ValueError, match="sonify mode"):
         aur.sonify(np.zeros((2, 32, 32, 3)), mode="stream")

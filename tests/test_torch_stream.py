@@ -499,12 +499,17 @@ def test_snapshot_while_streaming(tmp_path):
 # ---------------------------------------------------------------------------
 
 def test_pieces_still_to_port_raise(tmp_path):
-    """Only the orthomodes model is left to port: the control channel, the
-    live debug surface and the server now start (and stop)."""
+    """Nothing of the front door is left to port: the orthomodes model
+    constructs and serves, and the control channel, the live debug surface
+    and the server start (and stop)."""
     aur = Auralizer(config=AuralizerConfig(), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Auralizer(config=AuralizerConfig(), model="orthomodes",
-                  device="cpu")
+    ortho = Auralizer(config=AuralizerConfig(), model="orthomodes",
+                      device="cpu")
+    ortho_server = ortho.serve()
+    try:
+        assert ortho_server.url.startswith("http://127.0.0.1:")
+    finally:
+        ortho_server.stop()
     ctl = tmp_path / "ctl.jsonl"
     ctl.write_text('{"attack": 0.5}\n')
     channel = aur.attach_control(str(ctl))

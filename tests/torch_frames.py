@@ -195,12 +195,17 @@ def k4_chained(call, signals, tail, window, running_max, attack, release):
 
 def k4_forms(order: str):
     """(wrapper, plain version, run) of K4's op ``order``; run(fn, *args)
-    takes a chunk through fn: in one call in the chunk order, frame by
-    frame through ``agc_overlap_add`` (as frame_step calls it) in the frame
-    order."""
+    takes a chunk through fn: in one call in the chunk order and in the
+    frame order at T frames (``"frames"``, ``agc_overlap_add_frames``),
+    frame by frame through ``agc_overlap_add`` (as frame_step calls it) in
+    the frame order (``"frame"``)."""
     if order == "chunk":
         return (audio_kernel.agc_overlap_add_chunk,
                 audio_kernel.agc_overlap_add_chunk_plain,
+                lambda fn, *args: fn(*args))
+    if order == "frames":
+        return (audio_kernel.agc_overlap_add_frames,
+                audio_kernel.agc_overlap_add_frames_plain,
                 lambda fn, *args: fn(*args))
     return (k4_frame_call(audio_kernel.agc_overlap_add),
             k4_frame_call(audio_kernel.agc_overlap_add_plain), k4_chained)

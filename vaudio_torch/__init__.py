@@ -5,6 +5,8 @@ Same configuration (:class:`vaudio_torch.config.AuralizerConfig` and
 same layout and names as the JAX package, held to it by
 ``tests/test_torch_*.py``; every ``AuralizerConfig`` field runs, and RGB
 frames (u8 or f32) or planar YUV 4:2:0 dicts ``{"y", "u", "v"}`` go in.
+Both model families run: the flagship 16-cell model and the per-pixel
+OrthoModes family (``models.orthomodes``, ``Auralizer(model="orthomodes")``).
 Plain tensor code is PyTorch; the four kernels are hand-written CUDA C++
 for Hopper (``csrc/``): the u8 mip pool with its interleaved and planar
 entries (``ops.pool_kernel``), the Hann-peak spectrum contraction
@@ -32,11 +34,6 @@ from vaudio_torch.config import AuralizerConfig, LiveParams
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
-# Features not ported yet, each with the ROADMAP item that ports it.
-_NOT_PORTED = {
-    "the orthomodes model": "queue 1 item 10",
-}
-
 
 def device(spec=None) -> torch.device:
     """The device to run on: ``spec`` as given, else CUDA.  There is no
@@ -51,13 +48,4 @@ def device(spec=None) -> torch.device:
     return torch.device("cuda")
 
 
-def not_ported(feature: str) -> NotImplementedError:
-    """The error for a feature outside the ported slice (a key of
-    ``_NOT_PORTED``)."""
-    return NotImplementedError(
-        f"vaudio_torch does not port {feature} yet (ROADMAP.md "
-        f"{_NOT_PORTED[feature]}); use the JAX package for it")
-
-
-__all__ = ["AuralizerConfig", "LiveParams", "device",
-           "not_ported"]
+__all__ = ["AuralizerConfig", "LiveParams", "device"]

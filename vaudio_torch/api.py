@@ -24,6 +24,7 @@ Serving (frames pushed over HTTP, ``POST /frames``)::
     ...
     server.stop(); aur.stop()
 
+The per-pixel family: ``Auralizer(model="orthomodes")`` (mono, RGB only).
 Everything runs on the card unless ``device="cpu"`` is asked for.
 """
 
@@ -72,6 +73,10 @@ class Auralizer:
                             "source; pass the config as config=...")
         self._engine = make_engine(model, config, debug=debug,
                                    device=device)
+        # The engine owns any config coercion (the per-pixel family is mono
+        # and unfiltered): adopt its view, so that the ring and the PCM
+        # agree with it.
+        config = self._engine.cfg
         self.model = model
         self.config = config
         self.device = self._engine.device
@@ -105,6 +110,15 @@ class Auralizer:
         """
         if isinstance(frames, ArraySource):
             frames = frames.tensor()
+        if self.model == "orthomodes":
+            if debug:
+                raise ValueError("the OrthoModes family has no cell "
+                                 "debug surface (per-pixel model); "
+                                 "sonify with debug=False")
+            if isinstance(frames, dict):
+                raise ValueError("the OrthoModes family is RGB-only")
+            return self._engine.model.sonify(
+                frames, self._engine.params_arrays(self.params))
         if mode not in ("auto", "chunked", "scan"):
             raise ValueError(f"unknown sonify mode {mode!r} "
                              f"(expected auto, chunked or scan)")
@@ -236,6 +250,11 @@ class Auralizer:
         starts from the stream's current hues and is not advanced.  A u8
         frame goes to the device unconverted, through the same pooling as
         the stream; RGB only."""
+        if self.model != "auralizer":
+            raise ValueError(
+                f"inspect_frame analyzes the flagship 16-cell model; "
+                f"the {self.model!r} family has no cell debug surface "
+                "(spectrum/waveform views still work live)")
         frame = np.asarray(frame)
         if frame.dtype != np.uint8:
             frame = frame.astype(np.float32, copy=False)
@@ -304,11 +323,12 @@ class Auralizer:
 
     def save_state(self, path) -> None:
         """Serialize the stream's DSP carry to ``path`` (.npz, the JAX
-        package's format); safe while the stream runs."""
+        package's format); safe while the stream runs.  Raises ValueError
+        before the first frame of a frame-sized (OrthoModes) carry."""
         from vaudio_torch.runtime.checkpoint import save_state
         save_state(path, self._stream.snapshot_carry())
 
     def load_state(self, path) -> None:
-        """Restore a saved DSP carry (saved by either package); the next
-        frame continues from it."""
+        """Restore a saved DSP carry (saved by either package), checked by
+        this model family's engine; the next frame continues from it."""
         self._stream.set_carry(self._engine.load_carry(path))

@@ -11,9 +11,10 @@ CUDA source is ``csrc/audio_kernel.cu``, one launch per call at any T.
 
 Two op orders, which round differently, each as its reference has it:
 
-- the frame order (:func:`agc_overlap_add`, ``frame_step``): the TPU
-  kernel's, ``x / (peak / norm)``, as the unfused ``dsp.core.agc_normalize``
-  + ``overlap_add``.
+- the frame order (:func:`agc_overlap_add`, ``frame_step``, and
+  :func:`agc_overlap_add_frames`, T frames of it in one launch for the
+  OrthoModes chunk step): the TPU kernel's, ``x / (peak / norm)``, as the
+  unfused ``dsp.core.agc_normalize`` + ``overlap_add``.
 - the chunk order (:func:`agc_overlap_add_chunk`, ``chunk_pipeline``): the
   JAX chunked tail's, ``x * (1 / (peak / norm))``.
 
@@ -64,6 +65,19 @@ def agc_overlap_add_plain(signal, ola_tail, window, running_max, attack,
     windowed = normalized * gain * window
     hop = signal.shape[-1] // 2
     return ola_tail[..., hop:] + windowed[..., :hop], windowed, new_max
+
+
+def agc_overlap_add_frames_plain(signals, ola_tail, window, running_max,
+                                 attack, release):
+    """The plain PyTorch version of :func:`agc_overlap_add_frames`: T
+    chained calls of :func:`agc_overlap_add_plain`, the pcm stacked in the
+    kernel's layout."""
+    pcm = []
+    for signal in signals:
+        hop_pcm, ola_tail, running_max = agc_overlap_add_plain(
+            signal, ola_tail, window, running_max, attack, release)
+        pcm.append(hop_pcm if signal.ndim == 1 else hop_pcm.T)
+    return torch.stack(pcm), ola_tail, running_max
 
 
 def agc_overlap_add_chunk_plain(signals, ola_tail, window, running_max,
@@ -161,6 +175,20 @@ def agc_overlap_add(signal, ola_tail, window, running_max, attack, release):
                                      running_max, attack, release,
                                      _FRAME_ORDER, "agc_overlap_add")
     return (pcm[0] if signal.ndim == 1 else pcm[0].T), new_tail, new_max
+
+
+def agc_overlap_add_frames(signals, ola_tail, window, running_max, attack,
+                           release):
+    """T frames in the frame order, as T chained :func:`agc_overlap_add`
+    calls give them, in one launch: signals f32[T, nfft] or f32[T, C,
+    nfft], ola_tail the carried tail f32[(C,) nfft], window f32[nfft],
+    running_max / attack / release f32 scalars -> (pcm f32[T, nfft/2] or
+    f32[T, nfft/2, C], the new tail, the new running max f32[])."""
+    if signals.device.type == "cpu":
+        return agc_overlap_add_frames_plain(signals, ola_tail, window,
+                                            running_max, attack, release)
+    return _launch(signals, ola_tail, window, running_max, attack, release,
+                   _FRAME_ORDER, "agc_overlap_add_frames")
 
 
 def agc_overlap_add_chunk(signals, ola_tail, window, running_max, attack,

@@ -1,5 +1,6 @@
-"""Streaming-engine adapter — the PyTorch port of the flagship
-:class:`vaudio.runtime.engine.AuralizerEngine`.
+"""Streaming-engine adapters — the PyTorch port of
+:mod:`vaudio.runtime.engine`: the flagship :class:`AuralizerEngine` and
+the per-pixel :class:`OrthoModesEngine`.
 
 The stream (:mod:`vaudio_torch.runtime.stream`) owns the host loop; an
 engine supplies what is specific to the model: the per-frame and per-chunk
@@ -10,18 +11,23 @@ step's parameters.  The contract is the JAX package's:
   ``out["pcm"]`` one hop of samples and any other keys the debug surface;
 * ``make_chunk_step() -> step(carry, frames[N], params)``, ``out["pcm"]``
   shaped ``[N, hop]``;
-* ``carry_static``, ``init_carry``, ``params_arrays``, ``load_carry`` and
-  ``carry_mismatch``;
+* ``carry_static`` (False: the carry is sized by the frame, built at the
+  first dispatch and rebuilt after a resolution change), ``init_carry``,
+  ``carry_from_numpy`` (a carry of either package, tensors or numpy, as
+  this engine's carry type on its device), ``params_arrays``,
+  ``load_carry`` and ``carry_mismatch``;
 * ``frame_error(frame, cfg) -> Optional[str]``, the network-ingest door's
   check of what this engine can run.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional
 
+import numpy as np
+
 from vaudio_torch import device as pick_device
-from vaudio_torch import not_ported
 from vaudio_torch.config import AuralizerConfig, LiveParams
 
 
@@ -51,6 +57,10 @@ class AuralizerEngine:
         from vaudio_torch.runtime.step import init_carry
         return init_carry(self.cfg, self.device)
 
+    def carry_from_numpy(self, carry):
+        from vaudio_torch.runtime.step import carry_from_numpy
+        return carry_from_numpy(carry, self.device)
+
     def params_arrays(self, live: LiveParams):
         return live.as_arrays()
 
@@ -67,12 +77,151 @@ class AuralizerEngine:
         return None
 
 
+def _frame_hw(frame):
+    """(H, W) of an RGB frame or of a dict of YUV planes."""
+    if isinstance(frame, dict):
+        return tuple(np.shape(frame["y"]))[:2]
+    return tuple(np.shape(frame))[:2]
+
+
+class OrthoModesEngine:
+    """The per-pixel OrthoModes family behind the same streaming loop, on
+    one device (the card unless ``"cpu"`` is asked for).
+
+    Wraps :class:`vaudio_torch.models.OrthoModesModel`: the carry (one
+    phase per mip pixel) is sized by the first frame; the chunk step pools
+    its frames in one K1 launch and ends in one K4 launch; LiveParams maps
+    to ``{mode multipliers, spectrum_mixing, attack, release}``.  The model
+    is mono and RGB-only, so the config is coerced to one channel and no
+    filters (vaudio/runtime/engine.py:144-148)."""
+
+    name = "orthomodes"
+    carry_static = False
+
+    def __init__(self, cfg: AuralizerConfig, debug: bool = False,
+                 model_cfg=None, multipliers=None, device=None):
+        from vaudio_torch.models import OrthoModesConfig, OrthoModesModel
+        if cfg.channels != 1:
+            cfg = dataclasses.replace(cfg, channels=1)
+        if cfg.enable_filters:
+            cfg = dataclasses.replace(cfg, enable_filters=False)
+        self.cfg = cfg
+        self.debug = debug
+        if model_cfg is None:
+            model_cfg = OrthoModesConfig(audio=cfg)
+        self.model = OrthoModesModel(model_cfg, multipliers=multipliers,
+                                     device=device)
+        self.device = self.model.device
+
+    # -- step functions ------------------------------------------------------
+
+    def make_step(self):
+        """``step(carry, frame, params) -> (carry, out)``: one frame, host
+        or device; with ``debug`` also the spectrum (the per-pixel family
+        has no cell hues or gradients)."""
+        def step(carry, frame, params):
+            carry, pcm = self.model.frame_step(carry, frame, params)
+            out = {"pcm": pcm}
+            if self.debug:
+                out["spectrum"] = carry.prev_spectrum
+            return carry, out
+        return step
+
+    def make_chunk_step(self):
+        """``step(carry, frames[N], params) -> (carry, out)``, out["pcm"]
+        f32[N, hop] (and the N spectra with ``debug``)."""
+        def step(carry, frames, params):
+            carry, pcm, spectra = self.model.chunk_step(carry, frames,
+                                                        params)
+            out = {"pcm": pcm}
+            if self.debug:
+                out["spectrum"] = spectra
+            return carry, out
+        return step
+
+    # -- carry ---------------------------------------------------------------
+
+    def init_carry(self, frame=None):
+        if frame is None:
+            raise ValueError(
+                "the OrthoModes carry is sized by the frame (one "
+                "oscillator per mip pixel) — no frames seen yet")
+        return self.model.init_carry(
+            self.model.num_oscillators(*_frame_hw(frame)))
+
+    def carry_from_numpy(self, carry):
+        from vaudio_torch.models.orthomodes import carry_from_numpy
+        return carry_from_numpy(carry, self.device)
+
+    def params_arrays(self, live: LiveParams):
+        return {**self.model.multipliers.as_arrays(),
+                "spectrum_mixing": np.float32(live.spectrum_mixing),
+                "attack": np.float32(live.attack),
+                "release": np.float32(live.release)}
+
+    def load_carry(self, path):
+        """An OrthoModes checkpoint (either package's ``.npz``) on this
+        engine's device; the oscillator count is checked against the first
+        frame (:meth:`carry_mismatch`)."""
+        from vaudio_torch.models.orthomodes import OrthoCarry
+        from vaudio_torch.runtime.checkpoint import carry_type_of
+        data = np.load(path)
+        kind = carry_type_of(data)
+        if kind != "OrthoCarry":
+            raise ValueError(
+                f"checkpoint holds a {kind or 'flagship StepCarry'} "
+                "carry, not the OrthoModes per-pixel carry — saved by "
+                "another model family?")
+        missing = set(OrthoCarry._fields) - set(data.files)
+        if missing:
+            raise ValueError(
+                f"checkpoint is missing OrthoModes carry fields "
+                f"{sorted(missing)} — a flagship-model checkpoint?")
+        expect = (self.cfg.num_bins, 2)
+        if tuple(data["prev_spectrum"].shape) != expect:
+            raise ValueError(
+                f"checkpoint prev_spectrum shape "
+                f"{data['prev_spectrum'].shape}, expected {expect} — "
+                "wrong AuralizerConfig?")
+        return self.carry_from_numpy(data)
+
+    def frame_error(self, frame, cfg=None) -> Optional[str]:
+        from vaudio_torch.runtime.server import frame_structure_error
+        if isinstance(frame, dict):
+            return ("the OrthoModes family is RGB-only (the reference "
+                    "kernel predates the planar-YUV path); send "
+                    "(H, W, 3) frames")
+        err = frame_structure_error(frame, None)
+        if err is not None:
+            return err
+        h, w = _frame_hw(frame)
+        level = self.model.cfg.mip_level
+        if (h >> level) < 1 or (w >> level) < 1:
+            return (f"frame {h}x{w} is too small for the level-{level} "
+                    "per-pixel mip (no oscillators left)")
+        return None
+
+    def carry_mismatch(self, carry, frame) -> Optional[str]:
+        """A restore happens before any frame is seen, so the first
+        dispatch checks the restored carry's oscillator count against the
+        frame: a clear error instead of a broadcast failure in the step."""
+        h, w = _frame_hw(frame)
+        need = self.model.num_oscillators(h, w)
+        got = int(carry.phases.shape[-1])
+        if got != need:
+            return (f"restored OrthoModes carry holds {got} oscillators "
+                    f"but {h}x{w} frames at mip level "
+                    f"{self.model.cfg.mip_level} need {need} — "
+                    "checkpoint from a different input resolution?")
+        return None
+
+
 def make_engine(model: str, cfg: AuralizerConfig, debug: bool = False,
                 device=None):
     """Engine factory by family name (the CLI's ``--model`` values)."""
     if model in (None, "auralizer"):
         return AuralizerEngine(cfg, debug=debug, device=device)
     if model == "orthomodes":
-        raise not_ported("the orthomodes model")
+        return OrthoModesEngine(cfg, debug=debug, device=device)
     raise ValueError(f"unknown model family {model!r} "
                      "(auralizer, orthomodes)")

@@ -30,7 +30,6 @@ import torch
 from vaudio_torch.config import AuralizerConfig, LiveParams
 from vaudio_torch.io.sources import BorrowedFrame, own_frame
 from vaudio_torch.runtime.ringbuffer import make_ring_buffer
-from vaudio_torch.runtime.step import StepCarry, carry_from_numpy
 
 
 class StreamMetrics:
@@ -127,7 +126,12 @@ class StreamingAuralizer:
         self._step = engine.make_step()
         self._chunk_step = (engine.make_chunk_step()
                             if self.chunk_frames > 1 else None)
-        self._carry = engine.init_carry()
+        # An engine whose carry is sized by the frame (carry_static False)
+        # builds it at the first dispatch.
+        self._carry = engine.init_carry() if engine.carry_static else None
+        # False while a frame-sized carry awaits its check against the
+        # first frame (after set_carry and after a resolution change).
+        self._carry_checked = engine.carry_static
         # Guards the carry: the producer swaps it under this lock, and
         # snapshot_carry / set_carry / stop take it too.
         self._carry_lock = threading.Lock()
@@ -228,21 +232,31 @@ class StreamingAuralizer:
             self._metrics_fh = None
         self.ring.reset()
         with self._carry_lock:
-            self._carry = self._carry._replace(
-                ola_tail=torch.zeros_like(self._carry.ola_tail))
+            if self._carry is not None:
+                self._carry = self._carry._replace(
+                    ola_tail=torch.zeros_like(self._carry.ola_tail))
 
-    def snapshot_carry(self) -> StepCarry:
-        """A consistent host (numpy) copy of the DSP carry, safe to take
-        while the producer runs."""
+    def snapshot_carry(self):
+        """A consistent host (numpy) copy of the DSP carry, of the engine's
+        carry type, safe to take while the producer runs.  Raises
+        ValueError before the first frame of a frame-sized carry."""
         with self._carry_lock:
-            return StepCarry(*[x.cpu().numpy() for x in self._carry])
+            if self._carry is None:
+                raise ValueError(
+                    "no DSP carry yet: this engine sizes it from the "
+                    "first frame and none has been processed")
+            return type(self._carry)(*[x.cpu().numpy()
+                                       for x in self._carry])
 
     def set_carry(self, carry) -> None:
         """Replace the DSP carry (checkpoint resume): a carry of either
-        package, of tensors or of numpy arrays."""
-        carry = carry_from_numpy(carry, self.engine.device)
+        package, of tensors or of numpy arrays, converted to the engine's
+        carry type.  A frame-sized carry is checked against the next frame
+        dispatched (``engine.carry_mismatch``)."""
+        carry = self.engine.carry_from_numpy(carry)
         with self._carry_lock:
             self._carry = carry
+            self._carry_checked = self.engine.carry_static
 
     def toggle(self, source: Optional[Iterable[np.ndarray]] = None) -> None:
         if self._running:
@@ -388,20 +402,32 @@ class StreamingAuralizer:
                     if isinstance(last, dict) else np.array(last))
             params_arrays = self.engine.params_arrays(self.params)
             if len(frames_np) == 1:
-                frame_dev = self._to_device(frames_np[0])
-                with self._carry_lock:
-                    self._carry, out = self._step(self._carry, frame_dev,
-                                                  params_arrays)
+                step, frames_dev = self._step, self._to_device(frames_np[0])
             else:
                 if isinstance(frames_np[0], dict):   # planar YUV chunks
                     batch = {k: np.stack([f[k] for f in frames_np])
                              for k in frames_np[0]}
                 else:
                     batch = np.stack(frames_np)
-                batch = self._to_device(batch)
-                with self._carry_lock:
-                    self._carry, out = self._chunk_step(self._carry, batch,
-                                                        params_arrays)
+                step, frames_dev = self._chunk_step, self._to_device(batch)
+            with self._carry_lock:
+                if self._carry is None:
+                    # A frame-sized carry: built from the first frame, and
+                    # again after a resolution change; under the lock, so a
+                    # concurrent restore (POST /state.npz) is never
+                    # overwritten by a fresh carry.
+                    self._carry = self.engine.init_carry(frames_np[0])
+                elif not self._carry_checked:
+                    # A restored frame-sized carry, checked against the
+                    # first frame it meets: a clear error instead of a
+                    # shape failure inside the step.
+                    err = self.engine.carry_mismatch(self._carry,
+                                                     frames_np[0])
+                    if err is not None:
+                        raise ValueError(err)
+                self._carry_checked = True
+                self._carry, out = step(self._carry, frames_dev,
+                                        params_arrays)
             pending_q.put((out, t_capture, len(frames_np)))
 
         frames_it = iter(frames)
@@ -442,6 +468,14 @@ class StreamingAuralizer:
                 for f in chunk_buf:
                     dispatch([f], chunk_t0 or time.monotonic())
                 chunk_buf = []
+                if not self.engine.carry_static:
+                    # A frame-sized carry has no meaning at the new pixel
+                    # count: drop it, and the next dispatch builds a new
+                    # one.  The dispatched steps hold their own carries and
+                    # the drain keeps the ring's order.
+                    with self._carry_lock:
+                        self._carry = None
+                        self._carry_checked = False
             last_shape = shape
             if self.chunk_frames == 1:
                 dispatch([frame_np], time.monotonic())
