@@ -114,7 +114,23 @@ Phases, one line each; any failure exits non-zero:
     bit;
 21. OrthoModes resolution change (1080p then 720p: counted, the 720p part
     equal to a cold run) and a 720p checkpoint on 1080p frames failing with
-    the oscillator-count message.
+    the oscillator-count message;
+22. K4's stream axis (the serving pod's): S streams of very different
+    loudness in one launch, at S = 8, T = 8 stereo in the chunk order, S =
+    8 in the frame order (T = 1) and S = 2, T = 8 mono in the frame order
+    at T frames: within 1e-6 of the plain version (S plain calls), each
+    stream equal bit for bit to a launch on it alone; both times;
+23. the serving pod, ``MultiStreamAuralizer(cfg, n_streams=S,
+    engine=...)``: the flagship's live configuration, S = 4 slots of 1080p
+    stereo from distinct slices of the frames (slot 3 ends early, a dark
+    slot), per frame for 16 ticks and in chunks of 8 for 16 frames; the
+    same pod on I420 dicts per frame; OrthoModes, S = 2 at mip 5 in chunks
+    of 8: K1, K2, K3 and K4 (OrthoModes: K1 and K4) once a tick whatever
+    S; each slot's PCM against its single-stream run on the card (bit for
+    bit where it is, else within 2e-6; hues equal); a pod checkpointed
+    after 8 frames and restored into a second pod continuing bit for bit;
+    ms a tick, aggregate frames/s, device events a tick and the device's
+    idle share under the profiler.
 
 Each kernel's line gives two times: from CUDA events around a loop of calls
 (``ms``; for a small kernel the host's launch overhead sets it) and the
@@ -741,8 +757,9 @@ def phase_k3(frames: np.ndarray, smi: str) -> list:
 
 
 def k4_err(name: str, got, ref) -> float:
-    """Fail unless pcm and tail are within 1e-6 and the running max within
-    rtol 1e-6 (NaN where the reference has NaN); returns the max abs error
+    """Fail unless pcm and tail are within 1e-6 and the running max (one,
+    or one a stream) within rtol 1e-6 (NaN where the reference has NaN);
+    returns the max abs error
     of pcm and tail.  The plain version on the card divides by a Python
     scalar, which CUDA turns into a reciprocal multiply (1 ulp of the
     norm), so the kernel is exact against it only most of the time."""
@@ -751,9 +768,9 @@ def k4_err(name: str, got, ref) -> float:
         if g.shape != r.shape or not torch.equal(g.isnan(), r.isnan()):
             fail(f"{name}: shape or NaN positions differ")
         err = max(err, float((g - r).nan_to_num().abs().max()))
-    gm, rm = float(got[2]), float(ref[2])
-    rel = 0.0 if (gm == rm or (gm != gm and rm != rm)) \
-        else abs(gm - rm) / abs(rm)
+    gm, rm = got[2].double().cpu(), ref[2].double().cpu()  # f32[] or [S]
+    same = (gm == rm) | (gm.isnan() & rm.isnan())
+    rel = float(torch.where(same, 0.0, (gm - rm).abs() / rm.abs()).max())
     if not err <= 1e-6 or not rel <= 1e-6:
         fail(f"{name}: differs from the plain version by {err:.3e} "
              f"(running max rel {rel:.3e})")
@@ -1869,6 +1886,237 @@ def phase_ortho_resolution(frames: np.ndarray, smi: str) -> None:
         f"{msg} ({smi})")
 
 
+POD_S = 4                        # slots of the flagship pod phases
+POD_T = 16                       # frames a slot
+POD_BAND = 2e-6                  # pod vs single-stream PCM where not exact
+
+
+def phase_k4_streams(smi: str) -> list:
+    """K4 on a stream axis at the pod's shapes: S = 8, T = 8 stereo in the
+    chunk order, S = 8 in the frame order (one frame, the per-frame pod
+    with use_pallas), S = 2, T = 8 mono in the frame order at T frames (the
+    OrthoModes pod): within 1e-6 of the plain version (S plain calls), each
+    stream equal bit for bit to a launch on that stream alone, one device
+    kernel per call; the entries' times."""
+    from torch.profiler import ProfilerActivity, profile
+    from torch_frames import k4_stream_args, k4_stream_forms
+    rng = np.random.default_rng(1)
+    entries = []
+    for S, T, C, order, path in ((8, LIVE_CHUNK, 2, "chunk", "pod_chunk"),
+                                 (8, 1, 2, "frame", "pod_frame"),
+                                 (2, LIVE_CHUNK, 1, "frames",
+                                  "ortho_pod_chunk")):
+        fn, plain, frames_of = k4_stream_forms(order)
+        sig, tail, window, *scal = k4_stream_args(rng, S, T, C,
+                                                  device="cuda")
+        args = [frames_of(sig), tail, window, *scal]
+        name = f"K4 {order} order, stream axis S={S} T={T} C={C}"
+        got = fn(*args)
+        err = k4_err(name, got, plain(*args))
+        for k in range(S):
+            one = fn(args[0][k].contiguous(), tail[k], window,
+                     *(x[k] for x in scal))
+            if not all(bits_equal(g[k], r) for g, r in zip(got, one)):
+                fail(f"{name}: stream {k} differs from a launch on it alone")
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(10):
+                fn(*args)
+            torch.cuda.synchronize()
+        kernels = [e.name for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        if not (1 <= len(kernels) <= 20
+                and all("agc_overlap_add" in k for k in kernels)):
+            fail(f"{name}: device kernels of 10 calls: {kernels}")
+        nfft, hop = 4096, 2048
+        e = entry(f"agc_overlap_add_streams_s{S}" + ("_frames" if order ==
+                                                     "frames" else "")
+                  + f"_t{T}", "vaudio_torch/csrc/audio_kernel.cu",
+                  "vaudio/ops/audio_kernel.py:70", err,
+                  functools.partial(fn, *args),
+                  functools.partial(plain, *args),
+                  nbytes=4 * S * (T * C * nfft + C * hop + 3 + T * C * hop
+                                  + C * nfft + 1) + 4 * nfft,
+                  ops=S * T * (6 * C * nfft + C * hop), path=path,
+                  counter="agc_overlap_add")
+        say(f"{name}: max_abs_err {err:.3e}; each stream equal to a launch "
+            f"on it alone; {len(kernels) / 10:g} device kernels per call; "
+            f"{timing(e)} ({smi})")
+        entries.append(e)
+    return entries
+
+
+def run_pod(pod, sources, what: str) -> float:
+    """Run ``pod`` over ``sources`` to their end; the wall clock in s."""
+    t0 = time.perf_counter()
+    pod.start(sources)
+    while pod.is_running:
+        if time.perf_counter() - t0 > 300:
+            pod.stop()
+            fail(f"{what}: the pod still runs after 300 s")
+        time.sleep(0.001)
+    wall = time.perf_counter() - t0
+    try:
+        pod.raise_if_failed()
+    except RuntimeError as e:
+        fail(f"{what}: {e.__cause__!r}")
+    return wall
+
+
+def pod_profile_line(label: str, rows: dict, wall_ms: float, ticks: int,
+                     smi: str) -> str:
+    busy_ms = sum(us for _, us in rows.values()) / 1e3
+    if busy_ms <= 0:
+        return (f"pod profile: {label}: torch.profiler recorded no device "
+                f"events: not measured")
+    table = ", ".join(f"{k} {n / ticks:.2f}/tick {us / 1e3 / ticks:.4f} ms"
+                      for k, (n, us) in sorted(rows.items(),
+                                               key=lambda r: -r[1][1]))
+    return (f"pod profile: {label}, {ticks} ticks: wall {wall_ms / ticks:.3f}"
+            f" ms/tick, device busy {busy_ms / ticks:.4f} ms/tick "
+            f"({100 * busy_ms / wall_ms:.1f}% of the wall, idle "
+            f"{100 - 100 * busy_ms / wall_ms:.1f}%), "
+            f"{sum(n for n, _ in rows.values()) / ticks:.1f} device "
+            f"events/tick; by kind: {table} ({smi})")
+
+
+def pod_case(label, make_pod, sources, refs, exact, need, smi):
+    """One pod run: warm-up, the counted run, the checks of each slot
+    against ``refs`` (flat PCM of its real frames), a profiled run.
+    ``need``: {kernel counter: launches a tick}.  Returns (counts, the
+    pod of the counted run, the pulled PCM by slot)."""
+    run_pod(make_pod(), [s[:LIVE_CHUNK] for s in sources], label)
+    torch.cuda.synchronize()
+    pod = make_pod()
+    reset_counts()
+    wall = run_pod(pod, sources, label)
+    launches = read_counts()
+    ticks = pod.metrics.dispatches
+    want = {k: 0 for k in launches}
+    want.update({k: n * ticks for k, n in need.items()})
+    if launches != want:
+        fail(f"{label}: launches {launches}, expected {want} in {ticks} "
+             f"ticks")
+    ch = pod.cfg.channels * pod.cfg.hop_size
+    pcm, errs = [], []
+    for i, ref in enumerate(refs):
+        if pod.stream_metrics(i)["buffer_fill"] != len(ref) // ch:
+            fail(f"{label}: slot {i} holds "
+                 f"{pod.stream_metrics(i)['buffer_fill']} hops, expected "
+                 f"{len(ref) // ch}")
+        got = pod.pull(i, len(ref))
+        err = float(np.abs(got - ref).max())
+        if (exact and not np.array_equal(got, ref)) or not err <= POD_BAND \
+                or not np.abs(got).max() > 1e-3:
+            fail(f"{label}: slot {i} differs from its single-stream run by "
+                 f"{err:.3e} ({'bit for bit' if exact else POD_BAND} asked)"
+                 f" or is silent")
+        pcm.append(got)
+        errs.append(err)
+    frames = pod.metrics.frames_processed
+    say(f"pod: {label}: {ticks} ticks, {frames} real frames, "
+        f"{1e3 * wall / ticks:.3f} ms/tick, {frames / wall:.1f} frames/s "
+        f"aggregate; launches {launches}; each slot's PCM "
+        f"{'equal to its single-stream run bit for bit' if exact else f'within {POD_BAND} of its single-stream run'}"
+        f" (max {max(errs):.3e}) ({smi})")
+    prof_pod = make_pod()
+    rows, wall_ms = profiled(lambda: run_pod(prof_pod, sources, label))
+    say(pod_profile_line(label, rows, wall_ms, prof_pod.metrics.dispatches,
+                         smi))
+    return launches, pod, pcm
+
+
+def phase_pod(frames: np.ndarray, yuv: dict, smi: str) -> dict:
+    """The serving pod (runtime.multistream) at 1080p: the flagship's live
+    configuration with S = 4 slots (slot 3 ends after 12 frames) per frame
+    and in chunks of 8, the same on I420 dicts per frame, OrthoModes with S
+    = 2 in chunks of 8; a checkpoint after 8 frames restored into a second
+    pod.  Returns the counts by path."""
+    from vaudio_torch.runtime import MultiStreamAuralizer, chunked, step
+    from vaudio_torch.runtime.engine import AuralizerEngine, OrthoModesEngine
+    cfg = live_config()
+    clips = [clip_slice(frames, POD_T * k, POD_T * (k + 1))
+             for k in range(POD_S)]
+    clips[-1] = clips[-1][:12]      # a dark slot for the last 4 ticks
+    shape = "x".join(map(str, frames.shape[1:3]))
+    counts = {}
+    need = {"mip_pool_u8": 1, "hann_peak_weighted_sum": 1,
+            "vision_stats": 1, "agc_overlap_add": 1}
+
+    def flagship(chunk):
+        return lambda: MultiStreamAuralizer(
+            cfg, n_streams=POD_S, engine=AuralizerEngine(cfg),
+            chunk_frames=chunk)
+
+    finals = {}
+    for chunk, path in ((1, "pod_frame"), (LIVE_CHUNK, "pod_chunk")):
+        refs = []
+        for clip in clips:
+            if chunk == 1:
+                ref, carry, _ = step.run_offline(clip, cfg, device="cuda")
+            else:
+                ref, carry, _ = chunked.run_offline_batched(
+                    clip, cfg, chunk=chunk, device="cuda")
+            refs.append(ref.cpu().numpy().reshape(-1))
+            finals.setdefault(path, []).append(carry.hues.cpu().numpy())
+        counts[path], pod, pcm = pod_case(
+            f"flagship S={POD_S} {shape} stereo chunk_frames={chunk}",
+            flagship(chunk), clips, refs, chunk == 1, need, smi)
+        hues = pod.snapshot_carry().hues
+        if not np.array_equal(hues[:-1], np.stack(finals[path][:-1])):
+            fail(f"pod {path}: the slots' hues differ from their "
+                 f"single-stream runs'")
+        if chunk == 1:
+            uninterrupted = pcm
+
+    # A checkpoint after 8 frames, restored into a second pod.
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "pod.npz")
+        first = flagship(1)()
+        run_pod(first, [c[:8] for c in clips], "pod checkpoint, first half")
+        half = [first.pull(i, 8 * cfg.hop_size * 2) for i in range(POD_S)]
+        first.save_state(path)
+        first.stop()
+        second = flagship(1)()
+        second.load_state(path)
+        run_pod(second, [c[8:] for c in clips], "pod checkpoint, restored")
+        for i, clip in enumerate(clips):
+            rest = second.pull(i, (len(clip) - 8) * cfg.hop_size * 2)
+            if not np.array_equal(np.concatenate([half[i], rest]),
+                                  uninterrupted[i]):
+                fail(f"pod checkpoint: slot {i} differs from the "
+                     f"uninterrupted run")
+        size = os.path.getsize(path)
+    say(f"pod: save_state after 8 frames ({size} B) and load_state into a "
+        f"second pod: every slot's PCM equal to the uninterrupted pod's bit "
+        f"for bit ({smi})")
+
+    ysrc = [as_source(clip_slice(yuv, POD_T * k, POD_T * (k + 1)))
+            for k in range(POD_S)]
+    yrefs = [step.run_offline(clip_slice(yuv, POD_T * k, POD_T * (k + 1)),
+                              cfg, device="cuda")[0].cpu().numpy()
+             .reshape(-1) for k in range(POD_S)]
+    yneed = {"mip_pool_yuv420_u8": 1, "hann_peak_weighted_sum": 1,
+             "vision_stats": 1, "agc_overlap_add": 1}
+    counts["pod_yuv_frame"], _, _ = pod_case(
+        f"flagship S={POD_S} YUV 4:2:0 {shape} stereo chunk_frames=1",
+        flagship(1), ysrc, yrefs, True, yneed, smi)
+
+    ocfg = ortho_config()
+    oclips = clips[:2]
+    orefs = [ortho_by_pattern(c, [LIVE_CHUNK] * (POD_T // LIVE_CHUNK), ocfg)
+             for c in oclips]
+
+    def ortho():
+        eng = OrthoModesEngine(ocfg)
+        return MultiStreamAuralizer(eng.cfg, n_streams=2, engine=eng,
+                                    chunk_frames=LIVE_CHUNK)
+    counts["ortho_pod_chunk"], _, _ = pod_case(
+        f"OrthoModes S=2 {shape} mip {ORTHO_MIP} mono "
+        f"chunk_frames={LIVE_CHUNK}", ortho, oclips, orefs, True,
+        {"mip_pool_u8": 1, "agc_overlap_add": 1}, smi)
+    return counts
+
+
 def main() -> None:
     global _deadline
     if not torch.cuda.is_available():
@@ -1895,7 +2143,8 @@ def main() -> None:
     counts, ms = {}, {}
     counts["offline"], ms["offline"] = phase_offline(frames[:CHUNK_T], smi)
     counts["offline_yuv"], ms["offline_yuv"] = phase_offline(yuv, smi)
-    kernels += [*phase_k3(frames, smi), *phase_k4(smi)]
+    kernels += [*phase_k3(frames, smi), *phase_k4(smi),
+                *phase_k4_streams(smi)]
     for clip in (frames, yuv):
         c, w = phase_live(clip, smi)
         counts.update(c)
@@ -1915,6 +2164,7 @@ def main() -> None:
     counts.update(phase_ortho_live(frames, smi))
     counts.update(phase_ortho_serve(frames, smi))
     phase_ortho_resolution(frames, smi)
+    counts.update(phase_pod(frames, yuv, smi))
     for k in kernels:
         base = k.pop("counter")
         k["launches"] = counts[k["path"]][base]

@@ -7,12 +7,15 @@ so it also runs where they are not installed:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 """
 
+import time
+
 import numpy as np
 import pytest
 import torch
 
 from torch_frames import (k4_args, k4_chained, k4_edge_frames, k4_forms,
-                          structured_frames, structured_yuv_frames)
+                          k4_stream_args, k4_stream_forms, structured_frames,
+                          structured_yuv_frames)
 from vaudio_torch.config import AuralizerConfig
 from vaudio_torch.api import Auralizer
 from vaudio_torch.dsp.core import hann_sinc_peak_fast, hann_window_norm
@@ -844,3 +847,118 @@ def test_ortho_live_stream_on_the_card_equals_offline(dev, chunk_frames):
         carry, pcm = model.frame_step(carry, frame, params)
         ref.append(pcm)
     np.testing.assert_array_equal(got, torch.cat(ref).cpu().numpy())
+
+
+# ---------------------------------------------------------------------------
+# The serving pod: K4's stream axis and the stream-batched steps
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("S,T,channels,order", [
+    (8, 8, 2, "chunk"), (8, 1, 2, "frame"), (2, 8, 1, "frames"),
+    (3, 300, 2, "chunk"), (5, 4, 1, "frame")])
+def test_k4_stream_axis_matches_plain_and_single_launches(dev, gen, S, T,
+                                                          channels, order):
+    """K4 on a stream axis (S streams of very different loudness, each its
+    own tail and scalars): one launch; within the band of assert_k4_close
+    of the plain version (S plain calls); each stream equal bit for bit to
+    a launch on that stream alone."""
+    fn, plain, frames_of = k4_stream_forms(order)
+    sig, tail, window, *scal = k4_stream_args(gen, S, T, channels,
+                                              device=dev)
+    before = audio_kernel.launches
+    got = fn(frames_of(sig), tail, window, *scal)
+    assert audio_kernel.launches == before + 1
+    assert_k4_close(got, plain(frames_of(sig), tail, window, *scal))
+    for s in range(S):
+        one = fn(frames_of(sig)[s].contiguous(), tail[s], window,
+                 *(x[s] for x in scal))
+        assert all(bits_equal(g[s], r) for g, r in zip(got, one))
+
+
+def test_k4_stream_axis_checks_inputs(dev):
+    z = torch.zeros((2, 4, 4096), device=dev)
+    tail = torch.zeros((2, 4096), device=dev)
+    s2 = torch.ones(2, device=dev)
+    with pytest.raises(ValueError, match="ola_tail"):
+        audio_kernel.agc_overlap_add_chunk(z, tail[:, :2048], tail[0], s2,
+                                           s2, s2)
+    with pytest.raises(ValueError, match="attack"):
+        audio_kernel.agc_overlap_add_chunk(z, tail, tail[0], s2,
+                                           torch.ones(3, device=dev), s2)
+
+
+def pod_run(p, sources):
+    p.start([iter(s) for s in sources])
+    t0 = time.monotonic()
+    while p.is_running:
+        assert time.monotonic() - t0 < 120
+        time.sleep(0.005)
+    p.raise_if_failed()
+    return p
+
+
+@pytest.mark.parametrize("chunk", [1, 4])
+def test_pod_on_the_card_equals_single_stream_runs(dev, chunk):
+    """The live configuration in a pod of 3 slots (slot 2 ends early) on
+    the card: K1, K2, K3 and K4 once a tick; each slot's PCM equal to its
+    single-stream run on the card bit for bit per frame, within 2e-6 in
+    chunks (batched plain reductions may sum in another order), hues
+    equal."""
+    from vaudio_torch.runtime import MultiStreamAuralizer
+    from vaudio_torch.runtime.engine import AuralizerEngine
+    cfg = AuralizerConfig(channels=2, use_pallas=True,
+                          use_pallas_vision=True, ring_buffer_frames=32)
+    clips = [structured_frames(30 + s, 8, 192, 256) for s in range(3)]
+    clips[2] = clips[2][:5]
+    counters = [(pool_kernel, "launches"), (spectrum_kernel, "launches"),
+                (vision_kernel, "launches"), (audio_kernel, "launches")]
+    before = [getattr(m, a) for m, a in counters]
+    p = pod_run(MultiStreamAuralizer(cfg, n_streams=3,
+                                     engine=AuralizerEngine(cfg),
+                                     chunk_frames=chunk), clips)
+    ticks = p.metrics.dispatches
+    assert ticks == (8 if chunk == 1 else 2)
+    assert [getattr(m, a) - b for (m, a), b in zip(counters, before)] \
+        == [ticks] * 4
+    hues = []
+    for s, clip in enumerate(clips):
+        got = p.pull(s, len(clip) * 2048 * 2)
+        if chunk == 1:
+            ref, carry, _ = step.run_offline(clip, cfg, device=dev)
+        else:
+            ref, carry, _ = chunked.run_offline_batched(clip, cfg,
+                                                        chunk=chunk,
+                                                        device=dev)
+        ref = ref.cpu().numpy().reshape(-1)
+        if chunk == 1:
+            np.testing.assert_array_equal(got, ref)
+        else:
+            np.testing.assert_allclose(got, ref, rtol=0, atol=2e-6)
+        hues.append(carry.hues.cpu().numpy())
+    np.testing.assert_array_equal(p.snapshot_carry().hues[:2], hues[:2])
+    p.stop()
+
+
+def test_ortho_pod_on_the_card_equals_model_steps(dev):
+    """OrthoModes in a pod of 2 slots in chunks of 4 on the card: K1 and K4
+    once a tick; each slot equal to the model's chunk steps bit for bit."""
+    from vaudio_torch.runtime import MultiStreamAuralizer
+    from vaudio_torch.runtime.engine import OrthoModesEngine
+    clips = [ortho_frames(T=8)[::-1].copy(), ortho_frames(T=8)]
+    eng = OrthoModesEngine(AuralizerConfig(), device=dev)
+    before = (pool_kernel.launches, audio_kernel.launches)
+    p = pod_run(MultiStreamAuralizer(eng.cfg, n_streams=2, engine=eng,
+                                     chunk_frames=4), clips)
+    assert (pool_kernel.launches - before[0],
+            audio_kernel.launches - before[1]) == (2, 2)
+    model = eng.model
+    params = model.default_params()
+    for s, clip in enumerate(clips):
+        carry = model.init_carry(model.num_oscillators(192, 256))
+        ref = []
+        for k in (0, 4):
+            carry, pcm, _ = model.chunk_step(carry, clip[k:k + 4], params)
+            ref.append(pcm.reshape(-1))
+        np.testing.assert_array_equal(p.pull(s, 8 * 2048),
+                                      torch.cat(ref).cpu().numpy())
+    p.stop()

@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from vaudio_torch.config import AuralizerConfig
@@ -22,7 +23,8 @@ from vaudio.ops.pool_kernel import mip_pool_pallas
 from vaudio.ops.spectrum_kernel import hann_peak_weighted_sum_batched
 from vaudio.runtime.chunked import _batched_contraction
 from vaudio.synth import SynthConstants as JaxConsts
-from torch_frames import k4_args, k4_chained, k4_edge_frames, k4_forms
+from torch_frames import (k4_args, k4_chained, k4_edge_frames, k4_forms,
+                          k4_stream_args, k4_stream_forms)
 from vaudio_torch.ops import (_build, audio_kernel, pool_kernel,
                               spectrum_kernel, vision_kernel)
 
@@ -228,6 +230,41 @@ def test_k4_plain_matches_pallas_kernel(rng, channels, case):
     np.testing.assert_allclose(got[0].numpy(), np.asarray(ref[0]), atol=1e-6)
     np.testing.assert_allclose(got[1].numpy(), np.asarray(ref[1]), atol=1e-6)
     np.testing.assert_allclose(float(got[2]), float(ref[2]), rtol=1e-6)
+
+
+@pytest.mark.parametrize("order", ["frame", "chunk", "frames"])
+@pytest.mark.parametrize("channels", [1, 2])
+def test_k4_stream_axis_plain_equals_per_stream_calls(rng, order, channels):
+    """K4's stream axis on the CPU: the plain version on S = 3 streams of
+    very different loudness, each with its own tail, running max, attack
+    and release, equals 3 calls on each stream alone, bit for bit."""
+    fn, plain, frames_of = k4_stream_forms(order)
+    sig, tail, window, *scal = k4_stream_args(rng, 3, 4, channels)
+    got = fn(frames_of(sig), tail, window, *scal)
+    assert got[2].shape == (3,)
+    for s in range(3):
+        one = plain(frames_of(sig)[s], tail[s], window,
+                    *(x[s] for x in scal))
+        for g, r in zip(got, one):
+            assert torch.equal(g[s], r)
+
+
+@pytest.mark.parametrize("channels", [1, 2])
+def test_k4_stream_axis_matches_vmap_of_the_pallas_kernel(rng, channels):
+    """K4's frame order on a stream axis against jax.vmap of the TPU
+    kernel (interpret mode): a batching rule that adds a grid axis, as the
+    JAX pod runs it; pcm and tail within 1e-6, running max rtol 1e-6."""
+    sig, tail, window, *scal = k4_stream_args(rng, 3, 1, channels)
+    got = audio_kernel.agc_overlap_add(sig[:, 0], tail, window, *scal)
+    ref = jax.vmap(lambda x, t, r, a, l: jax_agc_overlap_add(
+        x, t, jnp.asarray(hann_window_norm(4096)), r, a, l,
+        interpret=True))(*(jnp.asarray(x.numpy()) for x in
+                           (sig[:, 0], tail, *scal)))
+    for g, r in zip(got[:2], ref[:2]):
+        np.testing.assert_allclose(g.numpy(), np.asarray(r), rtol=0,
+                                   atol=1e-6)
+    np.testing.assert_allclose(got[2].numpy(), np.asarray(ref[2]),
+                               rtol=1e-6)
 
 
 def test_k4_plain_equals_the_unfused_tail(rng):

@@ -234,12 +234,14 @@ def test_import_and_slice_leave_jax_out(tmp_path):
     """vaudio_torch imports neither jax nor the JAX package: checked in a
     fresh interpreter after the offline slice (RGB, a planar YUV dict and a
     debug run), a short stream with both kernel paths on, the OrthoModes
-    family offline and streamed in chunks, and the serving
+    family offline and streamed in chunks, the serving pod of both
+    families in chunks with a checkpoint round trip, and the serving
     path: frames pushed over HTTP into a served PushSource stream (the C++
     ring), the control channel, the live debug surface, the debug views,
     a checkpoint over HTTP and the native frame reader; with TF32 off."""
     code = textwrap.dedent("""
         import sys
+        import time
         import numpy as np
         import torch
         from vaudio_torch.config import AuralizerConfig
@@ -270,6 +272,21 @@ def test_import_and_slice_leave_jax_out(tmp_path):
                         device="cpu", chunk_frames=2)
         aur.run_until_exhausted(timeout=60)
         assert aur.pull(4 * 2048).shape == (4 * 2048,)
+        from vaudio_torch.runtime import MultiStreamAuralizer
+        from vaudio_torch.runtime.engine import make_engine
+        for model in ("auralizer", "orthomodes"):
+            eng = make_engine(model, cfg, device="cpu")
+            pod = MultiStreamAuralizer(eng.cfg, n_streams=2, engine=eng,
+                                       chunk_frames=2)
+            pod.start([frames[:4], frames[4:7]])
+            t0 = time.monotonic()
+            while pod.is_running and time.monotonic() - t0 < 60:
+                time.sleep(0.01)
+            pod.raise_if_failed()
+            assert pod.metrics.frames_processed == 7
+            pod.save_state(sys.argv[1] + "/pod.npz")
+            pod.load_state(sys.argv[1] + "/pod.npz")
+            pod.stop()
 
         import io, time, urllib.request
         from vaudio_torch.io import PushSource, RawVideoSource

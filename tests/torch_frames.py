@@ -171,6 +171,34 @@ def k4_args(rng, T: int, channels: int, nfft: int = 4096,
                for v in (0.3, 0.5, 0.2)])
 
 
+def k4_stream_args(rng, S: int, T: int, channels: int, nfft: int = 4096,
+                   device="cpu") -> list:
+    """K4's arguments on a stream axis of S streams, each with its own
+    loudness (scales 1e-3 to 1e3 across the streams), tail, running max,
+    attack and release: signals f32[S, T, (C,) nfft], tails f32[S, (C,)
+    nfft], the window, and running max, attack and release f32[S]."""
+    per = [k4_args(rng, T, channels, nfft, device) for _ in range(S)]
+    scales = np.geomspace(1e-3, 1e3, S).astype(np.float32)
+    sig = torch.stack([a[0] * float(k) for a, k in zip(per, scales)])
+    tail = torch.stack([a[1] for a in per])
+    scalars = [torch.as_tensor(rng.uniform(lo, hi, S).astype(np.float32),
+                               device=device)
+               for lo, hi in ((0.05, 3.0), (0.0, 1.0), (0.0, 1.0))]
+    return [sig, tail, per[0][2]] + scalars
+
+
+def k4_stream_forms(order: str):
+    """(wrapper, plain version, signals of the call) of K4's ``order`` on a
+    stream axis: the one-frame ``agc_overlap_add`` on frame 0 of each
+    stream (``"frame"``, made contiguous), or the T-frame entries."""
+    if order == "frame":
+        return (audio_kernel.agc_overlap_add,
+                audio_kernel.agc_overlap_add_plain,
+                lambda sig: sig[:, 0].contiguous())
+    fn, plain, _ = k4_forms(order)
+    return fn, plain, lambda sig: sig
+
+
 def k4_frame_call(agc_overlap_add):
     """The one-frame K4 ``agc_overlap_add`` (pcm f32[(C,) hop]) called as
     the chunk form at T=1 (signals f32[1, (C,) nfft] -> pcm f32[1, hop(,

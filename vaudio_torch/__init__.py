@@ -15,7 +15,10 @@ the AGC + overlap-add audio tail (``ops.audio_kernel``).  A CPU tensor runs
 each kernel's plain PyTorch version.  The live stream's host runtime, the
 audio ring and the read-ahead frame reader, is C++ (``native/``, built with
 ``g++`` at first use); the HTTP server (``runtime.server``) and the control
-channel (``runtime.control``) serve a stream over the network.
+channel (``runtime.control``) serve a stream over the network.  The
+serving pod runs in process (``runtime.MultiStreamAuralizer``): S streams
+of either family through one stream-batched step a tick, one launch of
+each kernel whatever S is; its HTTP panel is not ported yet.
 
 The entry points run on the card unless the caller asks for the CPU
 (``device="cpu"``).  Importing or running this package never imports jax

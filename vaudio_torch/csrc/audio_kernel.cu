@@ -1,4 +1,5 @@
-// Kernel K4: the fused AGC + overlap-add audio tail, for T frames at once.
+// Kernel K4: the fused AGC + overlap-add audio tail, for T frames of S
+// independent streams at once.
 //
 // Replaces: vaudio/ops/audio_kernel.py, agc_overlap_add (body
 // _agc_ola_kernel) — the TPU kernel that runs the whole audio tail of
@@ -43,7 +44,10 @@
 // second pass over the samples.
 //
 // What the design does about it: ONE launch per call, of one thread block
-// cluster of 8 CTAs (Hopper's distributed shared memory; 8 is the portable
+// cluster of 8 CTAs per stream (S clusters; stream s is cluster s, and each
+// runs what follows on its own stream's frames, tail and scalars, so slot s
+// of a launch equals a launch on stream s alone, bit for bit: the grid axis
+// that vmap of the TPU kernel's pallas_call adds) (Hopper's distributed shared memory; 8 is the portable
 // cluster size) of 512 threads.  CTA r owns the columns j of its eighth of
 // [0, hop) in every frame and channel: the samples j and hop + j, read as
 // 16-byte vectors where hop % 4 == 0 and the pointers are aligned.  The
@@ -88,15 +92,15 @@ constexpr int kBlockFrames = 256;       // frames per pass of the block loop
 enum Order { kFrameOrder = 0, kChunkOrder = 1 };
 
 struct Args {
-    const float* sig;       // [T, C, nfft]
-    const float* tail;      // [C, nfft]
+    const float* sig;       // [S, T, C, nfft]
+    const float* tail;      // [S, C, nfft]
     const float* window;    // [nfft]
-    const float* rmax_in;   // [1]
-    const float* attack;    // [1]
-    const float* release;   // [1]
-    float* pcm;             // [T, hop, C]
-    float* new_tail;        // [C, nfft]
-    float* rmax_out;        // [1]
+    const float* rmax_in;   // [S]
+    const float* attack;    // [S]
+    const float* release;   // [S]
+    float* pcm;             // [S, T, hop, C]
+    float* new_tail;        // [S, C, nfft]
+    float* rmax_out;        // [S]
     int T;
     int nfft;
     float g0;
@@ -188,11 +192,6 @@ agc_overlap_add_kernel(const Args a) {
     __shared__ float s_carry[3];  // running max; the last frame's sc, gain
 
     cg::cluster_group cluster = cg::this_cluster();
-    const float* __restrict__ sig = a.sig;
-    const float* __restrict__ tail = a.tail;
-    const float* __restrict__ window = a.window;
-    float* __restrict__ pcm = a.pcm;
-    float* __restrict__ new_tail = a.new_tail;
     const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
     const int nfft = a.nfft, hop = nfft / 2, T = a.T;
     const int rank = static_cast<int>(cluster.block_rank());
@@ -200,15 +199,23 @@ agc_overlap_add_kernel(const Args a) {
     const int jv0 = static_cast<int>(nvec * rank / kCluster);
     const int nv = static_cast<int>(nvec * (rank + 1) / kCluster) - jv0;
     const size_t frame = static_cast<size_t>(C) * nfft;
+    // This cluster's stream: its frames, tail, pcm and scalars.
+    const int st = blockIdx.x / kCluster;
+    const size_t st_frames = static_cast<size_t>(st) * T;
+    const float* __restrict__ sig = a.sig + st_frames * frame;
+    const float* __restrict__ tail = a.tail + st * frame;
+    const float* __restrict__ window = a.window;
+    float* __restrict__ pcm = a.pcm + st_frames * frame / 2;
+    float* __restrict__ new_tail = a.new_tail + st * frame;
     // No CTA may write into another's shared memory before every CTA of
     // the cluster has started: arrive here, wait before the first push
     // (the first block's peaks pass runs in between).
     asm volatile("barrier.cluster.arrive.relaxed.aligned;" ::: "memory");
     if (tid == 0) {
-        s_carry[0] = *a.rmax_in;
+        s_carry[0] = a.rmax_in[st];
         s_carry[1] = s_carry[2] = 0.0f;     // read only after a first block
     }
-    const float attack = *a.attack, release = *a.release;
+    const float attack = a.attack[st], release = a.release[st];
 
     for (int t0 = 0, buf = 0; t0 < T; t0 += kBlockFrames, buf ^= 1) {
         const int tb = min(kBlockFrames, T - t0);
@@ -357,17 +364,17 @@ agc_overlap_add_kernel(const Args a) {
         }
         __syncthreads();
     }
-    if (rank == 0 && tid == 0) *a.rmax_out = s_carry[0];
+    if (rank == 0 && tid == 0) a.rmax_out[st] = s_carry[0];
 }
 
 template <int V, int C>
-void launch(const Args& a, int order, cudaStream_t stream) {
+void launch(const Args& a, int S, int order, cudaStream_t stream) {
     if (order == kChunkOrder)
         agc_overlap_add_kernel<V, C, kChunkOrder>
-            <<<kCluster, kThreads, 0, stream>>>(a);
+            <<<kCluster * S, kThreads, 0, stream>>>(a);
     else
         agc_overlap_add_kernel<V, C, kFrameOrder>
-            <<<kCluster, kThreads, 0, stream>>>(a);
+            <<<kCluster * S, kThreads, 0, stream>>>(a);
 }
 
 bool aligned16(const void* p) {
@@ -376,19 +383,20 @@ bool aligned16(const void* p) {
 
 }  // namespace
 
-// sig f32[T, C, nfft]; tail f32[C, nfft]; window f32[nfft]; rmax, attack,
-// release f32[1]; pcm f32[T, nfft / 2, C]; new_tail f32[C, nfft]; new_rmax
-// f32[1]; all on the device and contiguous; T >= 1, C = 1 or 2, nfft even.
-// order 0 is the frame order (the TPU kernel's), 1 the chunk order (the JAX
-// chunked tail's); g0 and g1_minus_g0 are the f32 sigmoid bounds.  One
-// launch on `stream`; returns cudaGetLastError() (cudaErrorInvalidValue for
-// arguments it does not take).
+// S streams: sig f32[S, T, C, nfft]; tail f32[S, C, nfft]; window
+// f32[nfft]; rmax, attack, release f32[S]; pcm f32[S, T, nfft / 2, C];
+// new_tail f32[S, C, nfft]; new_rmax f32[S]; all on the device and
+// contiguous; S >= 1, T >= 1, C = 1 or 2, nfft even.  order 0 is the frame
+// order (the TPU kernel's), 1 the chunk order (the JAX chunked tail's); g0
+// and g1_minus_g0 are the f32 sigmoid bounds.  One launch of S clusters on
+// `stream`; returns cudaGetLastError() (cudaErrorInvalidValue for arguments
+// it does not take).
 extern "C" int vaudio_agc_overlap_add(
         const void* sig, const void* tail, const void* window,
         const void* rmax, const void* attack, const void* release, void* pcm,
-        void* new_tail, void* new_rmax, int T, int C, int nfft, int order,
-        float g0, float g1_minus_g0, void* stream) {
-    if (T < 1 || (C != 1 && C != 2) || nfft < 2 || nfft % 2 != 0
+        void* new_tail, void* new_rmax, int S, int T, int C, int nfft,
+        int order, float g0, float g1_minus_g0, void* stream) {
+    if (S < 1 || T < 1 || (C != 1 && C != 2) || nfft < 2 || nfft % 2 != 0
             || (order != kFrameOrder && order != kChunkOrder))
         return static_cast<int>(cudaErrorInvalidValue);
     const Args a{static_cast<const float*>(sig),
@@ -405,8 +413,8 @@ extern "C" int vaudio_agc_overlap_add(
         && aligned16(window) && aligned16(pcm) && aligned16(new_tail);
     const auto s = static_cast<cudaStream_t>(stream);
     if (vec)
-        C == 1 ? launch<4, 1>(a, order, s) : launch<4, 2>(a, order, s);
+        C == 1 ? launch<4, 1>(a, S, order, s) : launch<4, 2>(a, S, order, s);
     else
-        C == 1 ? launch<1, 1>(a, order, s) : launch<1, 2>(a, order, s);
+        C == 1 ? launch<1, 1>(a, S, order, s) : launch<1, 2>(a, S, order, s);
     return static_cast<int>(cudaGetLastError());
 }

@@ -182,11 +182,26 @@ def sigmoid_normalize(x, M, k: float = 2.0):
     return (g - float(np.float32(g0))) / float(np.float32(g1 - g0))
 
 
+def _stream_peak(signal, stream_axis: bool):
+    """max |signal|: over all of it, or per stream of a leading stream axis
+    (shaped to broadcast against ``signal``)."""
+    if not stream_axis:
+        return torch.amax(torch.abs(signal))
+    peak = torch.amax(torch.abs(signal).flatten(1), dim=1)
+    return peak.reshape((-1,) + (1,) * (signal.ndim - 1))
+
+
 def agc_normalize(signal, running_max, attack, release):
     """Attack/release AGC of one frame (SoundEngine.swift:412-426); the
-    peak is global over all of ``signal``.  Returns (normalized,
-    new_running_max)."""
-    frame_peak = torch.amax(torch.abs(signal)) + 1e-9
+    peak is global over all of ``signal``, or, with a leading stream axis
+    (running_max, attack and release f32[S]), over each stream's frame.
+    Returns (normalized, new_running_max)."""
+    pod = running_max.dim() == 1
+    frame_peak = _stream_peak(signal, pod) + 1e-9
+    if pod:                                    # the scalars as f32[S, 1..]
+        running_max, attack, release = (x.reshape(frame_peak.shape)
+                                        for x in (running_max, attack,
+                                                  release))
     attacked = attack * frame_peak + (1.0 - attack) * running_max
     released = release * frame_peak + (1.0 - release) * running_max
     new_max = torch.where(frame_peak > running_max, attacked, released)
@@ -194,14 +209,15 @@ def agc_normalize(signal, running_max, attack, release):
                               0.0, 1.0)
     out = signal / (frame_peak / norm_factor)
     out = torch.where(torch.isfinite(out), out, torch.zeros_like(out))
-    return out, new_max
+    return out, new_max.reshape(-1) if pod else new_max
 
 
-def overlap_add(signal, ola_tail, window):
+def overlap_add(signal, ola_tail, window, stream_axis: bool = False):
     """Peak-normalize, window and overlap-add one frame
-    (SoundEngine.swift:231-254); the peak is global across channels.
+    (SoundEngine.swift:231-254); the peak is global across channels (per
+    stream, with ``stream_axis``: a leading axis of independent streams).
     Returns (out_hop [..., nfft//2], new_tail [..., nfft])."""
     hop = signal.shape[-1] // 2
-    gain = 1.0 / (torch.amax(torch.abs(signal)) + 1e-6)
+    gain = 1.0 / (_stream_peak(signal, stream_axis) + 1e-6)
     windowed = signal * gain * window
     return ola_tail[..., hop:] + windowed[..., :hop], windowed

@@ -188,7 +188,9 @@ def extract_pixel_modes(frames, multipliers: Dict, cfg: OrthoModesConfig):
       f0 = 390 / (2 pi) hue + 400        (Hz, from the centre pixel)
 
     ``frames``: RGB (H, W, 3) or a batch (T, H, W, 3), u8 or f32.  Returns
-    (amp, q, f0), each f32[P] or f32[T, P], P the mip's pixels.
+    (amp, q, f0), each f32[P] or f32[T, P], P the mip's pixels.  With a
+    stream axis, frames (S, T, H, W, 3) and multipliers f32[S], each
+    stream's frames take its own multipliers: f32[S, T, P].
     """
     mip = pixel_mip(frames, cfg.mip_level)
     i, s, h = _hsi_kernel_variant(mip[..., 0, :, :], mip[..., 1, :, :],
@@ -210,6 +212,8 @@ def extract_pixel_modes(frames, multipliers: Dict, cfg: OrthoModesConfig):
     names = ("breathing", "vertical_tilt", "horizontal_tilt", "shear")
     mults = params_on({k: multipliers[k] for k in names}, mip.device)
     w = [mults[k] for k in names]
+    if w[0].dim() == 1:         # a stream axis: each stream's multipliers
+        w = [x.reshape((-1,) + (1,) * (i.dim() - 1)) for x in w]
     im1, im2, im3, im4 = modes["i"]
     sm1, sm2, sm3, sm4 = modes["s"]
     amp = torch.clamp(255.0 * (i + im1 * w[0] + im2 * w[1] + im3 * w[2]
@@ -340,49 +344,74 @@ class OrthoModesModel:
     def _spectra(self, carry: OrthoCarry, frames, params):
         """The frames' phases and spectra: (phases f32[P], spectra
         f32[T, F, 2]).  All T frames pool in one call; the phase recurrence
-        and the EMA run frame by frame; the peaks in blocks of frames."""
+        and the EMA run frame by frame; the peaks in blocks of frames.
+
+        With a stream axis (carry phases f32[S, P], frames (S, T, H, W,
+        3), params f32[S]) all S·T frames pool in one call, the recurrence
+        and the EMA step [S, ...] frame by frame with each stream's own
+        mixing, and the peak blocks count S·T frames: (phases f32[S, P],
+        spectra f32[S, T, F, 2])."""
         amp, q, f0 = extract_pixel_modes(frames, params, self.cfg)
-        T, P = f0.shape
+        pod = carry.phases.dim() == 2
+        lead, P = f0.shape[:-1], f0.shape[-1]
         consts = self._consts(P)
+        # Time leads in the serial loops: (T, [S,] P).
+        f0_t = f0.transpose(0, 1) if pod else f0
+        T = f0_t.shape[0]
         phases, seq = carry.phases, []
         for t in range(T):
-            phases = advance_phases(phases, f0[t], self.cfg.audio)
+            phases = advance_phases(phases, f0_t[t], self.cfg.audio)
             seq.append(phases)
-        seq = torch.stack(seq)
+        seq = torch.stack(seq, dim=1 if pod else 0)     # like f0
+        n = f0.numel() // P                             # S·T frames
+        amp, q, f0, seq = (x.reshape(n, P) for x in (amp, q, f0, seq))
         block = max(1, _PEAK_BLOCK_BYTES // (self.cfg.num_bins * P * 4))
         rot = torch.cat([peak_spectra(amp[k:k + block], q[k:k + block],
                                       f0[k:k + block], seq[k:k + block],
                                       self.cfg, consts)
-                         for k in range(0, T, block)])
+                         for k in range(0, n, block)])
+        rot = rot.reshape(lead + rot.shape[1:])
         mixing = params["spectrum_mixing"]
+        if pod:
+            rot, mixing = rot.transpose(0, 1), mixing[:, None, None]
         new = rot * (1.0 - mixing)
         prev, spectra = carry.prev_spectrum, []
         for t in range(T):
             prev = prev * mixing + new[t]
             spectra.append(prev)
-        return phases, torch.stack(spectra)
+        return phases, torch.stack(spectra, dim=1 if pod else 0)
 
     def frame_step(self, carry: OrthoCarry, frame, params,
                    window=None) -> Tuple[OrthoCarry, torch.Tensor]:
         """One RGB frame (H, W, 3) in, one hop of mono PCM f32[hop] out:
-        the chunk step on a chunk of one frame."""
-        carry, pcm, _ = self.chunk_step(carry, self._frames(frame)[None],
-                                        params, window)
-        return carry, pcm[0]
+        the chunk step on a chunk of one frame.  With a stream axis (see
+        :meth:`chunk_step`) one frame of each of S streams (S, H, W, 3) in,
+        pcm f32[S, hop] out."""
+        pod = carry.phases.dim() == 2
+        frames = self._frames(frame)
+        carry, pcm, _ = self.chunk_step(
+            carry, frames[:, None] if pod else frames[None], params, window)
+        return carry, pcm[:, 0] if pod else pcm[0]
 
     def chunk_step(self, carry: OrthoCarry, frames, params, window=None):
         """T frames (T, H, W, 3) in, PCM f32[T, hop] out, equal to T
         chained :meth:`frame_step` calls: one K1 launch for the chunk's
         mips, one batched irfft and one K4 launch in the frame order.
-        Returns (carry, pcm, spectra f32[T, F, 2])."""
+        Returns (carry, pcm, spectra f32[T, F, 2]).
+
+        With a leading stream axis — a carry whose fields lead with S,
+        frames (S, T, H, W, 3) and params whose values lead with S
+        (``runtime.multistream``) — the S streams run as one batch (one K1
+        launch for the S·T frames, K4 with its stream axis) and every
+        result leads with S."""
         params = params_on(params, self.device)
         window = self.window if window is None else window
         phases, spectra = self._spectra(carry, self._frames(frames), params)
         pcm, ola_tail, running_max = agc_overlap_add_frames(
             irfft_from_half(spectra), carry.ola_tail, window,
             carry.running_max, params["attack"], params["release"])
-        return (OrthoCarry(phases, spectra[-1], ola_tail, running_max), pcm,
-                spectra)
+        last = spectra[:, -1] if carry.phases.dim() == 2 else spectra[-1]
+        return OrthoCarry(phases, last, ola_tail, running_max), pcm, spectra
 
     def sonify(self, frames, params: Dict | None = None) -> np.ndarray:
         """Offline over a clip (T, H, W, 3), through the chunk step in

@@ -39,8 +39,7 @@ _SIGNATURES = {
                                       _P],
     "vaudio_vision_stats": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F,
                             _P],
-    "vaudio_agc_overlap_add": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
-                               _I, _I, _F, _F, _P],
+    "vaudio_agc_overlap_add": [_P] * 9 + [_I] * 5 + [_F, _F, _P],
 }
 
 _lock = threading.Lock()

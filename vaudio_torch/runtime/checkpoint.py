@@ -40,10 +40,14 @@ def save_state(path, carry) -> None:
              **{f: _host(getattr(carry, f)) for f in type(carry)._fields})
 
 
-def load_state(path, cfg: AuralizerConfig, device=None) -> StepCarry:
+def load_state(path, cfg: AuralizerConfig, device=None,
+               n_streams: int | None = None) -> StepCarry:
     """Restore a carry onto ``device`` (the card unless ``"cpu"`` is asked
     for), validating the marker, the fields and their shapes against
-    ``cfg``.  ``path`` may be a path or a binary file object."""
+    ``cfg``.  ``n_streams``: expect a batched carry whose fields lead with
+    that many streams (the serving pod's checkpoint,
+    :mod:`runtime.multistream`); None, the single-stream shape.  ``path``
+    may be a path or a binary file object."""
     data = np.load(path)
     kind = carry_type_of(data)
     if kind not in (None, "StepCarry"):
@@ -61,9 +65,12 @@ def load_state(path, cfg: AuralizerConfig, device=None) -> StepCarry:
     for f in _FIELDS:
         arr = data[f]
         expect = tuple(getattr(ref, f).shape)
+        if n_streams is not None:
+            expect = (n_streams,) + expect
         if tuple(arr.shape) != expect:
             raise ValueError(
                 f"checkpoint field {f!r} has shape {arr.shape}, config "
-                f"expects {expect} — wrong AuralizerConfig?")
+                f"expects {expect} — wrong AuralizerConfig"
+                f"{' or pod size' if n_streams is not None else ''}?")
         fields[f] = torch.as_tensor(np.array(arr), device=dev)
     return StepCarry(**fields)

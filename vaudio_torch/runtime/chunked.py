@@ -25,7 +25,8 @@ from vaudio_torch.runtime.step import (StepCarry, carry_from_numpy,
                                        check_frames, frames_slice,
                                        frames_to_device, init_carry,
                                        num_frames, params_to_device)
-from vaudio_torch.synth.spectrum import (SynthConstants, contract_spectrum,
+from vaudio_torch.synth.spectrum import (SynthConstants, _stream_rows,
+                                         contract_spectrum,
                                          filter_gain_from_params,
                                          flatten_partials,
                                          live_pan_from_params,
@@ -59,12 +60,29 @@ def chunk_pipeline(carry: StepCarry, frames, params: Dict[str, Any],
     (T, ...), on their device; returns (new_carry, out) with out["pcm"]
     f32[T, hop] mono or f32[T, hop, channels] stereo, and with ``debug``
     also hues, grads and spectrum per frame.  ``params`` as from
-    :func:`runtime.step.params_to_device`."""
+    :func:`runtime.step.params_to_device`.
+
+    With a leading stream axis — a carry whose fields lead with S, frames
+    (S, T, H, W, 3) or planes (S, T, ...), and params whose values lead
+    with S (``runtime.multistream``) — the S streams run as one batch: the
+    stateless per-frame stages fold the S·T frames into one frame axis
+    (one K1, K3 and K2 launch), the serial recurrences step [S, ...] frame
+    by frame (time leads inside) with each stream's own params, and K4
+    runs with its stream axis; every result leads with S."""
     mixing = params["spectrum_mixing"]
-    T = num_frames(frames)
+    pod = carry.hues.dim() == 2
+    if pod:
+        S, T = (frames["y"] if isinstance(frames, dict) else frames).shape[:2]
+        frames = ({k: v.flatten(0, 1) for k, v in frames.items()}
+                  if isinstance(frames, dict) else frames.flatten(0, 1))
+    else:
+        T = num_frames(frames)
 
     # ---- pass A: vision stats batched; hue EMA (and phases) serial ----
     hists, grads_seq = frame_stats(frames, cfg)         # (T,16,360), (T,16,4)
+    if pod:                                     # time-major: (T, S, 16, .)
+        hists, grads_seq = (x.reshape((S, T) + x.shape[1:]).transpose(0, 1)
+                            for x in (hists, grads_seq))
     max_vals, args = hist_max_and_arg(hists)
 
     hues = carry.hues
@@ -100,7 +118,7 @@ def chunk_pipeline(carry: StepCarry, frames, params: Dict[str, Any],
     cur = contract_spectrum(flat_pf, flat_w, flat_ibw, cfg, consts)
     rot = rotate_spectrum(cur, cfg, consts)             # (T, [ch,] F, 2)
     if cfg.enable_filters:
-        rot = rot * filter_gain_from_params(params, consts)
+        rot = rot * filter_gain_from_params(params, consts, cfg.channels)
 
     # ---- pass C1: spectrum EMA, serial, or one matrix product ----
     if cfg.use_matmul_ema:
@@ -108,15 +126,18 @@ def chunk_pipeline(carry: StepCarry, frames, params: Dict[str, Any],
         prev = spectra[-1]
     else:
         prev = carry.prev_spectrum
+        m = _stream_rows(mixing, prev.dim())
         spec_list = []
         for t in range(T):
-            prev = prev * mixing + rot[t] * (1.0 - mixing)
+            prev = prev * m + rot[t] * (1.0 - m)
             spec_list.append(prev)
         spectra = torch.stack(spec_list)
 
     # ---- pass C2: audio tail, one call of K4 over the chunk ----
     signals = (irfft_from_half_dense(spectra) if cfg.use_matmul_irfft
                else irfft_from_half(spectra))           # (T, [ch,] nfft)
+    if pod:                                             # (S, T, [ch,] nfft)
+        signals = signals.transpose(0, 1).contiguous()
     pcm, ola_tail, rm = agc_overlap_add_chunk(
         signals, carry.ola_tail, window, carry.running_max,
         params["attack"], params["release"])            # (T, hop[, ch])
@@ -127,6 +148,9 @@ def chunk_pipeline(carry: StepCarry, frames, params: Dict[str, Any],
     out: Dict[str, Any] = {"pcm": pcm}
     if debug:
         out.update(hues=hues_seq, grads=grads_seq, spectrum=spectra)
+        if pod:
+            out.update({k: v.transpose(0, 1) for k, v in out.items()
+                        if k != "pcm"})
     return new_carry, out
 
 
@@ -135,16 +159,28 @@ def _matmul_ema(rot, prev, mixing):
     vaudio/runtime/chunked.py:201-224): spec_t = m^(t+1) prev + (1 - m)
     sum_{k<=t} m^(t-k) rot_k as one lower-triangular (T, T) f32 product
     (TF32 is off).  Reassociated against the serial EMA (~1e-6 abs at
-    T=64), and torch.pow may differ from XLA's by an ulp."""
+    T=64), and torch.pow may differ from XLA's by an ulp.  With a stream
+    axis (rot (T, S, ...), mixing f32[S]) one (T, T) matrix a stream, in
+    one batched product."""
     T = rot.shape[0]
     t_idx = torch.arange(T, device=rot.device)
     lower = t_idx[:, None] >= t_idx[None, :]
     tk = (t_idx[:, None] - t_idx[None, :]).to(torch.float32)
+    steps = torch.arange(1, T + 1, dtype=torch.float32, device=rot.device)
+    if mixing.dim() == 1:
+        S = mixing.shape[0]
+        m = mixing[:, None, None]
+        L = torch.where(lower, (1.0 - m) * torch.pow(
+            m, torch.where(lower, tk, torch.zeros_like(tk))),
+            torch.zeros_like(tk))                        # (S, T, T)
+        pows = torch.pow(mixing[:, None], steps)         # (S, T)
+        spectra = torch.matmul(L, rot.reshape(T, S, -1).transpose(0, 1)) \
+            + pows[..., None] * prev.reshape(S, 1, -1)
+        return spectra.transpose(0, 1).reshape(rot.shape)
     L = torch.where(lower, (1.0 - mixing) * torch.pow(
         mixing, torch.where(lower, tk, torch.zeros_like(tk))),
         torch.zeros_like(tk))
-    pows = torch.pow(mixing, torch.arange(1, T + 1, dtype=torch.float32,
-                                          device=rot.device))
+    pows = torch.pow(mixing, steps)
     spectra = torch.matmul(L, rot.reshape(T, -1)) \
         + pows[:, None] * prev.reshape(1, -1)
     return spectra.reshape(rot.shape)

@@ -17,7 +17,13 @@ step's parameters.  The contract is the JAX package's:
   this engine's carry type on its device), ``params_arrays``,
   ``load_carry`` and ``carry_mismatch``;
 * ``frame_error(frame, cfg) -> Optional[str]``, the network-ingest door's
-  check of what this engine can run.
+  check of what this engine can run;
+* for the serving pod (:mod:`vaudio_torch.runtime.multistream`):
+  ``raw_step()`` and ``raw_chunk_step()``, the step over S streams at once
+  (frames on the engine's device with a leading stream axis, a carry and
+  params whose values lead with S), ``init_carry_batch(n, frame)`` and
+  ``load_carry_batch(path, n)``.  Where the JAX package ``vmap``s its
+  one-stream step, these are the port's stream-batched steps.
 """
 
 from __future__ import annotations
@@ -26,6 +32,7 @@ import dataclasses
 from typing import Optional
 
 import numpy as np
+import torch
 
 from vaudio_torch import device as pick_device
 from vaudio_torch.config import AuralizerConfig, LiveParams
@@ -53,9 +60,44 @@ class AuralizerEngine:
         return make_chunk_pipeline(self.cfg, debug=self.debug,
                                    device=self.device)
 
+    def _batched(self, fn, debug: bool):
+        """``step(carry, frames, params)`` running ``fn`` (frame_step or
+        chunk_pipeline) on a stream axis, with the constants and the
+        window built once on the engine's device."""
+        from vaudio_torch.dsp.core import hann_window_norm
+        from vaudio_torch.runtime.step import params_to_device
+        from vaudio_torch.synth.spectrum import SynthConstants
+        cfg, dev = self.cfg, self.device
+        consts = SynthConstants.create(cfg, dev)
+        window = torch.as_tensor(hann_window_norm(cfg.nfft), device=dev)
+
+        def step(carry, frames, params):
+            return fn(carry, frames, params_to_device(params, cfg, dev), cfg,
+                      consts, window, debug=debug)
+        return step
+
+    def raw_step(self):
+        """``step(carry, frames, params)`` over a pod's S streams: one
+        frame a stream, (S, H, W, 3) or planes (S, ...), through the
+        stream-batched :func:`runtime.step.frame_step`."""
+        from vaudio_torch.runtime.step import frame_step
+        return self._batched(frame_step, self.debug)
+
+    def raw_chunk_step(self):
+        """``step(carry, frames, params)`` over a pod's S streams of N
+        frames, (S, N, H, W, 3) or planes (S, N, ...), through the
+        stream-batched :func:`runtime.chunked.chunk_pipeline`."""
+        from vaudio_torch.runtime.chunked import chunk_pipeline
+        return self._batched(chunk_pipeline, False)
+
     def init_carry(self, frame=None):
         from vaudio_torch.runtime.step import init_carry
         return init_carry(self.cfg, self.device)
+
+    def init_carry_batch(self, n: int, frame=None):
+        """:meth:`init_carry` broadcast to ``n`` streams (every field gains
+        a leading stream axis)."""
+        return _batch(self.init_carry(), n)
 
     def carry_from_numpy(self, carry):
         from vaudio_torch.runtime.step import carry_from_numpy
@@ -68,6 +110,11 @@ class AuralizerEngine:
         from vaudio_torch.runtime.checkpoint import load_state
         return load_state(path, self.cfg, device=self.device)
 
+    def load_carry_batch(self, path, n: int):
+        """A pod checkpoint of ``n`` streams (either package's ``.npz``)."""
+        from vaudio_torch.runtime.checkpoint import load_state
+        return load_state(path, self.cfg, n_streams=n, device=self.device)
+
     def frame_error(self, frame, cfg=None) -> Optional[str]:
         from vaudio_torch.runtime.server import frame_structure_error
         return frame_structure_error(frame, cfg or self.cfg)
@@ -75,6 +122,13 @@ class AuralizerEngine:
     def carry_mismatch(self, carry, frame) -> Optional[str]:
         """The flagship carry does not depend on the frame size."""
         return None
+
+
+def _batch(carry, n: int):
+    """``carry`` repeated for ``n`` streams: each field gains a leading
+    stream axis."""
+    return type(carry)(*(x.expand((n,) + x.shape).contiguous()
+                         for x in carry))
 
 
 def _frame_hw(frame):
@@ -118,7 +172,9 @@ class OrthoModesEngine:
     def make_step(self):
         """``step(carry, frame, params) -> (carry, out)``: one frame, host
         or device; with ``debug`` also the spectrum (the per-pixel family
-        has no cell hues or gradients)."""
+        has no cell hues or gradients).  On a stream axis (the pod's
+        :meth:`raw_step`) one frame of each of S streams, every result
+        leading with S."""
         def step(carry, frame, params):
             carry, pcm = self.model.frame_step(carry, frame, params)
             out = {"pcm": pcm}
@@ -127,9 +183,12 @@ class OrthoModesEngine:
             return carry, out
         return step
 
+    raw_step = make_step
+
     def make_chunk_step(self):
         """``step(carry, frames[N], params) -> (carry, out)``, out["pcm"]
-        f32[N, hop] (and the N spectra with ``debug``)."""
+        f32[N, hop] (and the N spectra with ``debug``); on a stream axis
+        (the pod's :meth:`raw_chunk_step`) frames (S, N, H, W, 3)."""
         def step(carry, frames, params):
             carry, pcm, spectra = self.model.chunk_step(carry, frames,
                                                         params)
@@ -138,6 +197,8 @@ class OrthoModesEngine:
                 out["spectrum"] = spectra
             return carry, out
         return step
+
+    raw_chunk_step = make_chunk_step
 
     # -- carry ---------------------------------------------------------------
 
@@ -148,6 +209,10 @@ class OrthoModesEngine:
                 "oscillator per mip pixel) — no frames seen yet")
         return self.model.init_carry(
             self.model.num_oscillators(*_frame_hw(frame)))
+
+    def init_carry_batch(self, n: int, frame=None):
+        """The frame-sized carry of :meth:`init_carry` for ``n`` streams."""
+        return _batch(self.init_carry(frame), n)
 
     def carry_from_numpy(self, carry):
         from vaudio_torch.models.orthomodes import carry_from_numpy
@@ -163,6 +228,15 @@ class OrthoModesEngine:
         """An OrthoModes checkpoint (either package's ``.npz``) on this
         engine's device; the oscillator count is checked against the first
         frame (:meth:`carry_mismatch`)."""
+        return self._load(path, (self.cfg.num_bins, 2),
+                          "wrong AuralizerConfig")
+
+    def load_carry_batch(self, path, n: int):
+        """A pod checkpoint of ``n`` OrthoModes streams."""
+        return self._load(path, (n, self.cfg.num_bins, 2),
+                          "wrong pod size or model config")
+
+    def _load(self, path, expect, what: str):
         from vaudio_torch.models.orthomodes import OrthoCarry
         from vaudio_torch.runtime.checkpoint import carry_type_of
         data = np.load(path)
@@ -177,12 +251,11 @@ class OrthoModesEngine:
             raise ValueError(
                 f"checkpoint is missing OrthoModes carry fields "
                 f"{sorted(missing)} — a flagship-model checkpoint?")
-        expect = (self.cfg.num_bins, 2)
         if tuple(data["prev_spectrum"].shape) != expect:
             raise ValueError(
                 f"checkpoint prev_spectrum shape "
                 f"{data['prev_spectrum'].shape}, expected {expect} — "
-                "wrong AuralizerConfig?")
+                f"{what}?")
         return self.carry_from_numpy(data)
 
     def frame_error(self, frame, cfg=None) -> Optional[str]:

@@ -98,7 +98,9 @@ def synth_audio(spectrum, ola_tail, running_max, params: Dict[str, Any],
     (:func:`ops.audio_kernel.agc_overlap_add`), as the JAX package runs its
     fused kernel there.
     ``cfg.use_matmul_irfft`` takes the dense inverse DFT
-    (:func:`dsp.core.irfft_from_half_dense`) for the FFT.
+    (:func:`dsp.core.irfft_from_half_dense`) for the FFT.  With a stream
+    axis (running_max f32[S]) every peak and gain is per stream and every
+    result leads with S.
     Returns (pcm, new_ola_tail, new_running_max)."""
     signal = (irfft_from_half_dense(spectrum) if cfg.use_matmul_irfft
               else irfft_from_half(spectrum))
@@ -109,9 +111,10 @@ def synth_audio(spectrum, ola_tail, running_max, params: Dict[str, Any],
     else:
         normalized, new_max = agc_normalize(
             signal, running_max, params["attack"], params["release"])
-        pcm, new_tail = overlap_add(normalized, ola_tail, window)
+        pcm, new_tail = overlap_add(normalized, ola_tail, window,
+                                    stream_axis=running_max.dim() == 1)
     if cfg.channels != 1:
-        pcm = pcm.T
+        pcm = pcm.transpose(-1, -2)
     return pcm, new_tail, new_max
 
 
@@ -123,7 +126,15 @@ def frame_step(carry: StepCarry, frame, params: Dict[str, Any],
     accumulation -> spectrum -> irfft/AGC/OLA.  ``params`` as from
     :func:`params_to_device`.  Returns (new_carry, out) with out["pcm"]
     f32[hop] (mono) or f32[hop, channels]; with ``debug`` also hues, grads
-    and spectrum."""
+    and spectrum.
+
+    With a leading stream axis — a carry whose fields lead with S, one
+    frame of each stream (S, H, W, 3) or planes (S, ...), and params whose
+    values lead with S (``runtime.multistream``) — the S streams step as
+    one batch: one vision pass (one K1 and one K3 launch) and one
+    contraction (K2) for the S frames, each stream's recurrences with its
+    own params, per-stream peaks in the audio tail (K4 with its stream
+    axis), and every result leading with S."""
     mixing = params["spectrum_mixing"]
     hues, grads = extract_features(frame, carry.hues, mixing, cfg)
     phases = phase_accumulate(carry.phases, hues, cfg, consts)

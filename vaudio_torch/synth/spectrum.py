@@ -4,6 +4,12 @@
 Every function takes any leading batch dimensions (the chunked pipeline
 passes a leading ``T``), where the JAX package ``vmap``s a per-frame one.
 The host constants are built by the same numpy code as the JAX package's.
+
+The serving pod's stream axis (``runtime.multistream``) is one of those
+leading dimensions, with params whose values lead with S (one row a
+stream): the functions that read the live params broadcast each stream's
+values to its own rows (:func:`live_pan_gains`,
+:func:`filter_gain_from_params`, :func:`finalize_spectrum`).
 """
 
 from __future__ import annotations
@@ -269,7 +275,9 @@ def live_pan_gains(cfg: AuralizerConfig, stereo_width, angles=None,
                    device=None):
     """Width-scaled equal-power pan gains f32[num_cells, 2] on ``device``
     (:func:`vaudio_torch.device`: the card unless given):
-    theta' = pi/4 + width (theta - pi/4), clipped to [0, pi/2]."""
+    theta' = pi/4 + width (theta - pi/4), clipped to [0, pi/2].  A width
+    f32[S] (a stream axis, with angles f32[S, num_cells] or none) gives
+    f32[S, num_cells, 2]."""
     device = pick_device(device)
     if angles is None:
         theta = torch.as_tensor(cell_pan_angles(cfg), device=device)
@@ -277,9 +285,11 @@ def live_pan_gains(cfg: AuralizerConfig, stereo_width, angles=None,
         theta = torch.as_tensor(angles, dtype=torch.float32, device=device)
     quarter = float(np.float32(np.pi / 4.0))
     w = torch.as_tensor(stereo_width, dtype=torch.float32, device=device)
+    if w.dim() == 1:
+        w = w[:, None]
     eff = torch.clamp(quarter + w * (theta - quarter), 0.0,
                       float(np.float32(np.pi / 2.0)))
-    return torch.stack([torch.cos(eff), torch.sin(eff)], dim=1)
+    return torch.stack([torch.cos(eff), torch.sin(eff)], dim=-1)
 
 
 def live_pan_from_params(cfg: AuralizerConfig, params, device=None):
@@ -325,8 +335,8 @@ def flatten_partials(pfreq, w_re, w_im, inv_bw, cfg: AuralizerConfig,
     if cfg.channels == 2:
         if pan is None:
             pan = torch.as_tensor(cell_pan_gains(cfg), device=pfreq.device)
-        pan_flat = torch.repeat_interleave(pan, P, dim=0)     # (NP, 2)
-        flat_w = (pan_flat[:, :, None] * flat_w[..., None, :]).reshape(
+        pan_flat = torch.repeat_interleave(pan, P, dim=-2)  # ([S,] NP, 2)
+        flat_w = (pan_flat[..., None] * flat_w[..., None, :]).reshape(
             lead + (nc * P, cfg.channels * 2))
     return flat_pf, flat_w, flat_ibw
 
@@ -362,23 +372,38 @@ def rotate_spectrum(cur, cfg: AuralizerConfig, consts: SynthConstants):
                         cur[..., 0] * s + cur[..., 1] * c], dim=-1)
 
 
-def filter_gain_from_params(params, consts: SynthConstants):
-    """Per-bin HP/LP gain f32[F, 1] from the live params."""
-    return spectral_filter_gain(
-        consts.freqs, params["hp_cutoff"], params["lp_cutoff"],
-        params["hp_order"], params["lp_order"])[:, None]
+def filter_gain_from_params(params, consts: SynthConstants,
+                            channels: int = 1):
+    """Per-bin HP/LP gain f32[F, 1] from the live params; with a stream
+    axis (params f32[S]) f32[S, F, 1], or f32[S, 1, F, 1] against stereo
+    spectra (``channels`` 2)."""
+    keys = ("hp_cutoff", "lp_cutoff", "hp_order", "lp_order")
+    if params["hp_cutoff"].dim() == 0:
+        return spectral_filter_gain(consts.freqs,
+                                    *(params[k] for k in keys))[:, None]
+    gain = spectral_filter_gain(consts.freqs,
+                                *(params[k][:, None] for k in keys))
+    return gain[:, None, :, None] if channels == 2 else gain[..., None]
 
 
 def finalize_spectrum(cur, prev_spectrum, spectrum_mixing,
                       cfg: AuralizerConfig, consts: SynthConstants,
                       filter_params=None):
     """Rotation, optional HP/LP filter and the temporal EMA against the
-    previous frame (SpectrumCompute.metal:198-213)."""
+    previous frame (SpectrumCompute.metal:198-213); a mixing f32[S] (a
+    stream axis) mixes each stream's rows with its own value."""
     rot = rotate_spectrum(cur, cfg, consts)
     if cfg.enable_filters and filter_params is not None:
-        rot = rot * filter_gain_from_params(filter_params, consts)
-    m = spectrum_mixing
+        rot = rot * filter_gain_from_params(filter_params, consts,
+                                            cfg.channels)
+    m = _stream_rows(spectrum_mixing, prev_spectrum.dim())
     return prev_spectrum * m + rot * (1.0 - m)
+
+
+def _stream_rows(x, ndim: int):
+    """A live param against a tensor of ``ndim`` dimensions: a scalar as
+    it is, a stream axis's f32[S] as f32[S, 1, ...] (one row a stream)."""
+    return x.reshape((-1,) + (1,) * (ndim - 1)) if x.dim() == 1 else x
 
 
 def build_spectrum(hues, grads, phases, prev_spectrum, spectrum_mixing,

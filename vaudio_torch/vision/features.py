@@ -342,7 +342,11 @@ def hist_max_and_arg(hist):
 def update_hues_from_stats(max_val, arg, prev_hues, mixing,
                            cfg: AuralizerConfig):
     """The gated, truncating hue EMA (VisionEngine.swift:255-271) — the
-    only serial piece of the vision pass."""
+    only serial piece of the vision pass.  A mixing f32[S] (a stream axis:
+    hues i32[S, cells]) mixes each stream's hues with its own value, in
+    the same f32 op order."""
+    if mixing.dim() == 1:
+        mixing = mixing[:, None]
     mixed = prev_hues.to(torch.float32) * mixing + arg * (1.0 - mixing)
     new = mixed.to(torch.int32)          # truncation, as Swift Int32(Float)
     return torch.where(max_val > float(np.float32(cfg.hist_count_gate)),
@@ -538,9 +542,16 @@ def extract_features(frame, prev_hues, mixing, cfg: AuralizerConfig,
     """The full vision pass of one frame (H, W, 3), or a dict of its YUV
     planes -> (hues i32[16], grads f32[16, 4]); with
     ``compute_debug_maps`` also the frame's debug dict (see
-    :func:`frame_stats`)."""
-    out = frame_stats(_one_frame(frame), cfg, compute_debug_maps)
-    hues = update_hues(out[0][0], prev_hues, mixing, cfg)
-    if not compute_debug_maps:
-        return hues, out[1][0]
-    return hues, out[1][0], {k: v[0] for k, v in out[2].items()}
+    :func:`frame_stats`).  With a stream axis (prev_hues i32[S, 16],
+    mixing f32[S]) ``frame`` is one frame of each of S streams, (S, H, W,
+    3) or planes (S, ...), all through one :func:`frame_stats` call, and
+    every result leads with S."""
+    pod = prev_hues.dim() == 2
+    out = frame_stats(frame if pod else _one_frame(frame), cfg,
+                      compute_debug_maps)
+    if not pod:
+        out = tuple(o[0] for o in out[:2]) + (
+            ({k: v[0] for k, v in out[2].items()},) if compute_debug_maps
+            else ())
+    hues = update_hues(out[0], prev_hues, mixing, cfg)
+    return (hues,) + tuple(out[1:])
