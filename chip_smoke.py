@@ -130,7 +130,22 @@ Phases, one line each; any failure exits non-zero:
     bit where it is, else within 2e-6; hues equal); a pod checkpointed
     after 8 frames and restored into a second pod continuing bit for bit;
     ms a tick, aggregate frames/s, device events a tick and the device's
-    idle share under the profiler.
+    idle share under the profiler;
+24. the serving pod behind its HTTP panel (``pod.serve(port=0)``), driven
+    by ``vaudio_torch.client.PodClient``: S = 4 slots leased with
+    ``acquire(maxsize=16, when_empty="dark")`` and filled before
+    ``pod.start`` (so that each tick sees what the in-process pod's does),
+    per frame over ``.npy`` RGB bodies and in chunks of 8 over raw I420
+    bodies; OrthoModes S = 2 in chunks of 8, and its ``/state.npz`` after
+    8 frames POSTed into a second served pod that finishes the clips: K1,
+    K2, K3 and K4 (OrthoModes: K1 and K4) once a tick, the counts set to 0
+    before the first request and read after the last; each slot's PCM
+    equal bit for bit to the in-process pod's on the same frames, slot 0's
+    through ``/slots/0/audio.wav`` (``PodSlot.record``) as the WAV
+    quantises it; ``/metrics``' ``frame_sig`` equal to
+    ``client.frame_sig_json``; the four slot views (OrthoModes' hue view
+    404); ms a tick, aggregate frames/s and the ms of one push of each
+    body kind.
 
 Each kernel's line gives two times: from CUDA events around a loop of calls
 (``ms``; for a small kernel the host's launch overhead sets it) and the
@@ -2117,6 +2132,191 @@ def phase_pod(frames: np.ndarray, yuv: dict, smi: str) -> dict:
     return counts
 
 
+def via(what: str, call):
+    """``call()``, a request through vaudio_torch.client, under the stall
+    watch; an error answer fails the run."""
+    from vaudio_torch.client import VaudioHTTPError
+    with stacks_on_stall(what):
+        try:
+            return call()
+        except VaudioHTTPError as e:
+            fail(f"{what}: {e}")
+
+
+def serve_pod_case(label, make_pod, clips, ref, need, smi, state=None,
+                   slot_views=("hue_matrix", "spectrum", "waveform",
+                               "input"), record=False):
+    """One served pod: ``make_pod()`` behind ``pod.serve(port=0)``, one
+    slot a clip leased through ``PodClient.acquire`` and filled over HTTP
+    (RGB as ``.npy`` bodies through ``PodSlot.push``, YUV as raw I420
+    bodies) before ``pod.start``, so that every tick sees the same frames
+    as the in-process pod's; ``state`` (a /state.npz body) is POSTed first
+    and the slots leased warm.  Checks: launches ``need`` once a tick, with
+    the counts set to 0 before the first request and read after the last;
+    each slot's PCM (``pod.pull``; slot 0 through ``PodSlot.record`` when
+    ``record``) equal bit for bit to ``ref`` (flat PCM by slot); /metrics'
+    frame_sig; the slot views (a view not in ``slot_views`` answers 404).
+    Returns (launches, the /state.npz body after the run, a time line)."""
+    from vaudio_torch.client import PodClient, frame_sig_json
+    pod = make_pod()
+    srv = pod.serve(port=0)
+    client = PodClient(srv.url, timeout=HTTP_TIMEOUT_S)
+    try:
+        reset_counts()
+        if state is not None:
+            via(f"{label}: POST /state.npz",
+                lambda: client.load_state(state))
+        slots = [via(f"{label}: acquire",
+                     lambda: client.acquire(maxsize=POD_T, when_empty="dark",
+                                            reset=state is None))
+                 for _ in clips]
+        if [s.index for s in slots] != list(range(len(clips))):
+            fail(f"{label}: leased slots {[s.index for s in slots]}")
+        t0 = time.perf_counter()
+        n_push = 0
+        for slot, clip in zip(slots, clips):
+            for t in range(len(clip["y"]) if isinstance(clip, dict)
+                           else len(clip)):
+                if isinstance(clip, dict):
+                    post_i420(f"{srv.url}slots/{slot.index}/", clip, t)
+                else:
+                    via(f"{label}: push", lambda: slot.push(clip[t]))
+                n_push += 1
+            via(f"{label}: close", slot.close_push)
+        push_ms = 1e3 * (time.perf_counter() - t0) / n_push
+        wall = run_pod(pod, [()] * len(clips), label)
+        ticks = pod.metrics.dispatches
+        m = via(f"{label}: GET /metrics", client.metrics)
+        first = clips[0]
+        first = ({k: v[0] for k, v in first.items()}
+                 if isinstance(first, dict) else first[0])
+        if m["frame_sig"] != frame_sig_json(first) or \
+                m["frames_processed"] != pod.metrics.frames_processed:
+            fail(f"{label}: /metrics frame_sig {m['frame_sig']}, "
+                 f"expected {frame_sig_json(first)}")
+        sizes = []
+        for name in ("hue_matrix", "spectrum", "waveform", "input"):
+            with stacks_on_stall(f"{label}: {name}.png"):
+                status, png = http_json(
+                    f"{srv.url}slots/{len(clips) - 1}/debug/{name}.png")
+            want = 200 if name in slot_views else 404
+            if status != want or (want == 200 and
+                                  not png.startswith(b"\x89PNG")):
+                fail(f"{label}: /slots/{len(clips) - 1}/debug/{name}.png "
+                     f"answered {status}, expected {want}")
+            sizes.append(f"{name} {status}")
+        saved = via(f"{label}: GET /state.npz", client.save_state)
+        ch = pod.cfg.channels
+        for i, r in enumerate(ref):
+            if i == 0 and record:
+                pcm = via(f"{label}: audio.wav", lambda: slots[0].record(
+                    len(r) / ch / pod.cfg.sample_rate)).reshape(-1)
+                want = (np.clip(r, -1.0, 1.0) * 32767.0).astype("<i2")
+                want = want.astype(np.float32) / 32767.0
+            else:
+                pcm, want = pod.pull(i, len(r)), r
+            if not np.array_equal(pcm, want) or not np.abs(pcm).max() > 1e-3:
+                fail(f"{label}: slot {i} differs from the in-process pod by "
+                     f"{np.abs(pcm - want).max():.3e} or is silent")
+        launches = read_counts()
+    finally:
+        srv.stop()
+        pod.stop()
+    want = {k: 0 for k in launches}
+    want.update({k: n * ticks for k, n in need.items()})
+    if launches != want:
+        fail(f"{label}: launches {launches}, expected {want} in {ticks} "
+             f"ticks")
+    frames = pod.metrics.frames_processed
+    body = "raw I420" if isinstance(clips[0], dict) else ".npy RGB"
+    recorded = " (slot 0 through /slots/0/audio.wav, quantised)"
+    return launches, saved, (
+        f"{ticks} ticks, {frames} real frames, {1e3 * wall / ticks:.3f} "
+        f"ms/tick, {frames / wall:.1f} frames/s aggregate; one HTTP push of "
+        f"a {body} body {push_ms:.3f} ms; launches {launches} (the HTTP "
+        f"requests add none); each slot's PCM equal to the in-process pod's "
+        f"bit for bit{recorded if record else ''}; /metrics frame_sig equal "
+        f"to frame_sig_json; views {sizes} ({smi})")
+
+
+def phase_pod_serve(frames: np.ndarray, yuv: dict, smi: str) -> dict:
+    """The serving pod behind its HTTP panel at 1080p, driven by the port's
+    PodClient: the flagship's live configuration with S = 4 leased slots
+    per frame over .npy RGB bodies and in chunks of 8 over raw I420 bodies,
+    and OrthoModes with S = 2 in chunks of 8, whose /state.npz after 8
+    frames is POSTed into a second served pod that finishes the clips.
+    Each against the in-process pod fed the same frames in the same ticks,
+    bit for bit.  Returns the counts by path."""
+    from vaudio_torch.runtime import MultiStreamAuralizer
+    from vaudio_torch.runtime.engine import AuralizerEngine, OrthoModesEngine
+    cfg = live_config()
+    shape = "x".join(map(str, frames.shape[1:3]))
+    counts = {}
+
+    def flagship(chunk):
+        return lambda: MultiStreamAuralizer(
+            cfg, n_streams=POD_S, engine=AuralizerEngine(cfg),
+            chunk_frames=chunk)
+
+    def in_process(make_pod, clips, label):
+        pod = make_pod()
+        run_pod(pod, [as_source(c) for c in clips], label)
+        ch = pod.cfg.channels * pod.cfg.hop_size
+        ref = [pod.pull(i, (len(c["y"]) if isinstance(c, dict) else len(c))
+                        * ch) for i, c in enumerate(clips)]
+        pod.stop()
+        return ref
+
+    for chunk, src, path, need in (
+            (1, frames, "pod_serve_frame",
+             {"mip_pool_u8": 1, "hann_peak_weighted_sum": 1,
+              "vision_stats": 1, "agc_overlap_add": 1}),
+            (LIVE_CHUNK, yuv, "pod_serve_yuv_chunk",
+             {"mip_pool_yuv420_u8": 1, "hann_peak_weighted_sum": 1,
+              "vision_stats": 1, "agc_overlap_add": 1})):
+        clips = [clip_slice(src, POD_T * k, POD_T * (k + 1))
+                 for k in range(POD_S)]
+        clips[-1] = clip_slice(clips[-1], 0, 12)     # a dark slot at the end
+        what = (f"flagship S={POD_S} {'YUV 4:2:0 ' if chunk > 1 else ''}"
+                f"{shape} stereo chunk_frames={chunk}")
+        ref = in_process(flagship(chunk), clips, f"{what} in process")
+        counts[path], _, line = serve_pod_case(
+            f"served {what}", flagship(chunk), clips, ref, need, smi,
+            record=chunk == 1)
+        say(f"pod serve: {what}: {line}")
+
+    ocfg = ortho_config()
+    oclips = [frames[POD_T * k:POD_T * (k + 1)] for k in range(2)]
+
+    def ortho():
+        eng = OrthoModesEngine(ocfg)
+        return MultiStreamAuralizer(eng.cfg, n_streams=2, engine=eng,
+                                    chunk_frames=LIVE_CHUNK)
+    what = (f"OrthoModes S=2 {shape} mip {ORTHO_MIP} mono "
+            f"chunk_frames={LIVE_CHUNK}")
+    ref = in_process(ortho, oclips, f"{what} in process")
+    views = ("spectrum", "waveform", "input")
+    need = {"mip_pool_u8": 1, "agc_overlap_add": 1}
+    counts["ortho_pod_serve_chunk"], _, line = serve_pod_case(
+        f"served {what}", ortho, oclips, ref, need, smi, slot_views=views)
+    say(f"pod serve: {what}: {line}")
+    half = POD_T // 2
+    hop = ocfg.hop_size
+    _, saved, _ = serve_pod_case(
+        f"served {what}, first {half} frames", ortho,
+        [c[:half] for c in oclips], [r[:half * hop] for r in ref], need, smi,
+        slot_views=views)
+    _, _, line = serve_pod_case(
+        f"served {what}, restored from /state.npz", ortho,
+        [c[half:] for c in oclips], [r[half * hop:] for r in ref], need, smi,
+        state=saved, slot_views=views)
+    say(f"pod serve: {what}: /state.npz ({len(saved)} B) after {half} "
+        f"frames POSTed into a second served pod, which finishes the clips: "
+        f"each slot's PCM equal to the uninterrupted in-process pod's bit "
+        f"for bit; {line}")
+    return counts
+
+
 def main() -> None:
     global _deadline
     if not torch.cuda.is_available():
@@ -2165,6 +2365,7 @@ def main() -> None:
     counts.update(phase_ortho_serve(frames, smi))
     phase_ortho_resolution(frames, smi)
     counts.update(phase_pod(frames, yuv, smi))
+    counts.update(phase_pod_serve(frames, yuv, smi))
     for k in kernels:
         base = k.pop("counter")
         k["launches"] = counts[k["path"]][base]

@@ -852,6 +852,35 @@ class TestIdleShrink:
         assert p.auto_shrinks == 1 and not ps.closed
         p.stop()
 
+    def test_shrink_is_counted_before_it_is_published(self):
+        """An auto shrink is counted before the apply publishes the
+        smaller n_streams: a slowed apply records auto_shrinks as it
+        returns (already 1), and a reader that sees the pod shrunk during
+        the slow-down sees the shrink counted."""
+        p = pod(n_streams=1, max_streams=2, exit_when_exhausted=False,
+                idle_shrink=0.3)
+        seen = []
+        apply = p._apply_resize
+
+        def slow_apply(n_new):
+            old = p.n_streams
+            apply(n_new)
+            if n_new < old:
+                seen.append(p.auto_shrinks)
+                time.sleep(0.2)
+        p._apply_resize = slow_apply
+        p.start([iter(())])
+        p.acquire_slot(when_empty="dark")
+        s1, _ = p.acquire_slot(when_empty="dark")
+        assert s1 == 1 and p.n_streams == 2
+        p.release_slot(1)
+        wait_for(lambda: p.n_streams == 1, p)
+        assert p.auto_shrinks == 1
+        assert p.metrics_dict()["auto_shrinks"] == 1
+        wait_for(lambda: seen, p)
+        assert seen == [1]
+        p.stop()
+
     def test_validation(self):
         with pytest.raises(ValueError, match="idle_shrink"):
             pod(n_streams=1, idle_shrink=0.0)

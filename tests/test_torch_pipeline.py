@@ -235,7 +235,8 @@ def test_import_and_slice_leave_jax_out(tmp_path):
     fresh interpreter after the offline slice (RGB, a planar YUV dict and a
     debug run), a short stream with both kernel paths on, the OrthoModes
     family offline and streamed in chunks, the serving pod of both
-    families in chunks with a checkpoint round trip, and the serving
+    families in chunks with a checkpoint round trip, a pod served by its
+    PodServer and driven by vaudio_torch.client, and the serving
     path: frames pushed over HTTP into a served PushSource stream (the C++
     ring), the control channel, the live debug surface, the debug views,
     a checkpoint over HTTP and the native frame reader; with TF32 off."""
@@ -286,6 +287,29 @@ def test_import_and_slice_leave_jax_out(tmp_path):
             assert pod.metrics.frames_processed == 7
             pod.save_state(sys.argv[1] + "/pod.npz")
             pod.load_state(sys.argv[1] + "/pod.npz")
+            pod.stop()
+        from vaudio_torch.client import PodClient, frame_sig_json
+        eng = make_engine("auralizer", cfg, device="cpu")
+        pod = MultiStreamAuralizer(cfg, n_streams=1, engine=eng,
+                                   exit_when_exhausted=False)
+        panel = pod.serve(port=0)
+        try:
+            pod.start([iter(())])
+            client = PodClient(panel.url)
+            slot = client.acquire(when_empty="dark")
+            for fr in frames[:3]:
+                slot.push(fr)
+            t0 = time.monotonic()
+            while (pod.metrics.frames_processed < 3
+                   and time.monotonic() - t0 < 60):
+                time.sleep(0.01)
+            m = client.metrics()
+            assert m["frame_sig"] == frame_sig_json(frames[0])
+            assert slot.view("input").startswith(b"\\x89PNG")
+            assert client.load_state(client.save_state())["restored"]
+            slot.release()
+        finally:
+            panel.stop()
             pod.stop()
 
         import io, time, urllib.request

@@ -16,9 +16,10 @@ each kernel's plain PyTorch version.  The live stream's host runtime, the
 audio ring and the read-ahead frame reader, is C++ (``native/``, built with
 ``g++`` at first use); the HTTP server (``runtime.server``) and the control
 channel (``runtime.control``) serve a stream over the network.  The
-serving pod runs in process (``runtime.MultiStreamAuralizer``): S streams
-of either family through one stream-batched step a tick, one launch of
-each kernel whatever S is; its HTTP panel is not ported yet.
+serving pod (``runtime.MultiStreamAuralizer``) runs S streams of either
+family through one stream-batched step a tick, one launch of each kernel
+whatever S is, behind its HTTP panel (``runtime.PodServer``), which the
+HTTP clients of ``vaudio_torch.client`` drive.
 
 The entry points run on the card unless the caller asks for the CPU
 (``device="cpu"``).  Importing or running this package never imports jax

@@ -12,7 +12,7 @@ with (``alwaysDiscardsLateVideoFrames``, CameraModel.swift:24).
 thread-safe queue where *newest frames win* — when the queue is full the
 oldest queued frame is dropped, never the incoming one.
 
-A serving pod (the JAX package's :mod:`vaudio.runtime.multistream`)
+A serving pod (:mod:`vaudio_torch.runtime.multistream`)
 consumes sources in lockstep, one ``next()`` per slot per tick, so a push
 slot must never block the batch. The ``when_empty`` policy controls what
 an empty queue yields:
@@ -203,7 +203,8 @@ def push_frames(base_url: str, slot: Optional[int], frames,
     close.  The fleet-client mode: no slot bookkeeping on the caller.
 
     The server sides are :class:`vaudio_torch.runtime.server.LiveServer`
-    and a serving pod's panel (the JAX package's ``PodServer``)."""
+    and a serving pod's panel
+    (:class:`vaudio_torch.runtime.podserver.PodServer`)."""
     import json
     import time
     import urllib.error

@@ -1,7 +1,6 @@
 """The multi-stream serving pod: N concurrent video streams through ONE
 batched device step per tick — the PyTorch port of
-:mod:`vaudio.runtime.multistream`, in process (its HTTP panel, ``serve``,
-is not ported yet).
+:mod:`vaudio.runtime.multistream` (without its ``mesh``).
 
 * N frame sources advance in lockstep, one frame per stream per tick (or
   ``chunk_frames`` per stream through the chunk-batched pipeline — the
@@ -22,7 +21,9 @@ is not ported yet).
   the host every dispatch and copied to the device once a key;
 * slots whose source ends go dark (they are fed black frames to keep the
   batch shape static — the state evolves exactly as if the camera cut to
-  black) and can be re-armed live with :meth:`replace_source`.
+  black) and can be re-armed live with :meth:`replace_source`;
+* :meth:`MultiStreamAuralizer.serve` puts the pod behind its live HTTP
+  panel (:class:`vaudio_torch.runtime.podserver.PodServer`).
 
 All streams in a pod share one resolution and dtype; a mid-stream
 resolution change is an error for its slot.  Capacity is elastic:
@@ -281,6 +282,20 @@ class MultiStreamAuralizer:
         self._zeros = None
         self._metrics_log = metrics_log
         self._metrics_fh = None
+        #: When True (set by :meth:`serve` / PodServer.start, reset by
+        #: PodServer.stop) the producer keeps cheap per-slot
+        #: observability state: the last REAL output hop (waveform view)
+        #: and a small RGB preview of the last ingested frame (the
+        #: CameraPreview surface).  Off by default — the serving hot
+        #: path pays nothing for views nobody watches.  Previews are
+        #: additionally throttled to :attr:`preview_interval` seconds
+        #: per slot (panels poll at ~2 Hz; rendering every frame of an
+        #: 8x30fps pod would burn host time on discarded images).
+        self.observe = False
+        self.preview_interval = 0.25
+        self.last_pcm: List[Optional[np.ndarray]] = [None] * n_streams
+        self.last_preview: List[Optional[np.ndarray]] = [None] * n_streams
+        self._preview_t = [0.0] * n_streams
 
     # -- step construction --------------------------------------------------
 
@@ -532,6 +547,9 @@ class MultiStreamAuralizer:
             self._active.extend([False] * add)
             self.slot_errors.extend([None] * add)
             self.push_sources.extend([None] * add)
+            self.last_pcm.extend([None] * add)
+            self.last_preview.extend([None] * add)
+            self._preview_t.extend([0.0] * add)
             self.n_streams = n_new
         else:
             self.n_streams = n_new
@@ -541,6 +559,9 @@ class MultiStreamAuralizer:
             del self._active[n_new:]
             del self.slot_errors[n_new:]
             del self.push_sources[n_new:]
+            del self.last_pcm[n_new:]
+            del self.last_preview[n_new:]
+            del self._preview_t[n_new:]
             with self._source_lock:
                 self._pending_sources = [
                     (s, it, r) for s, it, r in self._pending_sources
@@ -797,6 +818,20 @@ class MultiStreamAuralizer:
                 break                   # shrunk under us: report fewer
         return out
 
+    def serve(self, port: int = 0, host: str = "127.0.0.1",
+              refresh_ms: int = 500, token: Optional[str] = None):
+        """Start the pod's live HTTP observability + control panel — the
+        serving-fleet equivalent of :meth:`vaudio_torch.api.Auralizer
+        .serve`: per-slot live views (dominant hues, spectrum, waveform,
+        input preview), per-slot parameter sliders (POST
+        ``/slots/<i>/params``), per-slot ``/slots/<i>/audio.wav``
+        speakers, and aggregate pod metrics.  Non-blocking; returns the
+        started :class:`~vaudio_torch.runtime.podserver.PodServer`.
+        Enables :attr:`observe`."""
+        from vaudio_torch.runtime.podserver import PodServer
+        return PodServer(self, host=host, port=port,
+                         refresh_ms=refresh_ms, token=token).start()
+
     # -- producer ------------------------------------------------------------
 
     def _fail_slot(self, i: int, e: BaseException) -> None:
@@ -879,6 +914,14 @@ class MultiStreamAuralizer:
             for t, is_real in enumerate(mask):
                 if is_real:
                     self.rings[i].write(pcm[i, t])
+                    if self.observe:
+                        # Waveform view state: the slot's latest real hop
+                        # (the previousSignal surface,
+                        # Views/TimeDomainFrameView.swift:15-51).
+                        row = pcm[i, t]
+                        if self.cfg.channels > 1:
+                            row = row.reshape(-1, self.cfg.channels)
+                        self.last_pcm[i] = row
         latency_ms = (time.monotonic() - t0) * 1000.0
         n_frames = int(sum(sum(m) for m in masks))
         self.metrics.record(latency_ms, n_frames)
@@ -980,11 +1023,17 @@ class MultiStreamAuralizer:
                         self._flush(pending)
                         pending = None
                     old_n = self.n_streams
+                    if len(req) == 3:
+                        # Counted before the apply publishes the smaller
+                        # n_streams: a reader that sees the pod shrunk
+                        # also sees the shrink counted.  Still after the
+                        # re-validation above, so only a shrink that takes
+                        # place is counted.
+                        self.auto_shrinks += 1
                     self._apply_resize(req[0])
                     chunk_bufs = [[] for _ in range(self.n_streams)]
                     chunk_mask = [[] for _ in range(self.n_streams)]
                     if len(req) == 3:
-                        self.auto_shrinks += 1
                         print(f"vaudio pod: trailing slots "
                               f"{req[0]}..{old_n - 1} idle past "
                               f"{self.idle_shrink:g}s; shrunk to "
@@ -1041,6 +1090,23 @@ class MultiStreamAuralizer:
                 time.sleep(0.001)
                 continue
             frames, real = tick
+            if self.observe:
+                # Input-preview state (the CameraPreview surface,
+                # Views/CameraPreview.swift:11-51): render the small RGB
+                # preview NOW — frames may be zero-copy pool views only
+                # valid within this tick; the preview strides+copies.
+                # Throttled per slot (see preview_interval).
+                from vaudio_torch.utils.render import input_preview_image
+                now = time.monotonic()
+                for i in range(self.n_streams):
+                    if real[i] and \
+                            now - self._preview_t[i] >= self.preview_interval:
+                        self._preview_t[i] = now
+                        try:
+                            self.last_preview[i] = \
+                                input_preview_image(frames[i])
+                        except Exception:
+                            pass   # a view must never kill the producer
             if T == 1:
                 # _stack copies the (possibly zero-copy-borrowed) frames
                 # within the tick, inside the sources' lag-2 window.
