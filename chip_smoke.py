@@ -145,7 +145,34 @@ Phases, one line each; any failure exits non-zero:
     quantises it; ``/metrics``' ``frame_sig`` equal to
     ``client.frame_sig_json``; the four slot views (OrthoModes' hue view
     404); ms a tick, aggregate frames/s and the ms of one push of each
-    body kind.
+    body kind;
+25. the local meshes of ``vaudio_torch.parallel`` over the card (distinct
+    cards where there are enough, else the card's device repeated) at
+    the live configuration, S = 4 slots of 1080p: ``make_parallel_step``
+    on (2,1), (1,2), (2,2) and (2,4) for 8 ticks against the one-device
+    batched step (DP bit for bit, TP within 3e-4 with the measured
+    maximum, hues equal), K1, K3 and K2' counted n_stream * n_cell times
+    a tick and K4 n_stream times, the cell sums n_stream a tick;
+    ``make_parallel_chunk_step`` and OrthoModes'
+    ``make_engine_parallel_step`` (mono, mip 5) on (2,1) in chunks of 8
+    (within 2e-6, and bit for bit); the mesh pod
+    (``MultiStreamAuralizer(mesh=..., params=shared)``) per frame on every
+    shape and in chunks of 8 on (2,1), 16 frames a slot, each slot against
+    the one-device pod with its launches counted, and the (2,1) and (2,2)
+    pods per frame under the profiler (device events a tick, idle share);
+    K2 at the cell shards' widths NP = 248 and 124 (T = 2) against its
+    plain version with phase 5's checks (two rows of the kernels line);
+    ``dryrun_multichip(4)``; the pods' ms a tick beside the one-device
+    pod's ("one card, device repeated: not a scaling figure");
+26. two child processes on the card run ``tests/torch_hostpod_driver.py``
+    (torch.distributed on Gloo over host flags, each child's device
+    cuda:0): one 4-slot global ``MultiHostPod`` at the live configuration,
+    8 frames of 1080p a slot, per frame and in chunks of 8, each global
+    slot against the single-process pod (bit for bit per frame, within
+    2e-6 in chunks), each child's K1-K4 once a tick and its ms a tick
+    after a warm-up pod; a child still running past the watchdog's
+    remaining time is killed and the phase fails; then a world-of-one
+    ``MultiHostAuralizer`` through ``init_distributed``.
 
 Each kernel's line gives two times: from CUDA events around a loop of calls
 (``ms``; for a small kernel the host's launch overhead sets it) and the
@@ -170,6 +197,7 @@ import io
 import json
 import os
 import re
+import socket
 import subprocess
 import sys
 import tempfile
@@ -2317,6 +2345,419 @@ def phase_pod_serve(frames: np.ndarray, yuv: dict, smi: str) -> dict:
     return counts
 
 
+MESH_SHAPES = ((2, 1), (1, 2), (2, 2), (2, 4))
+MESH_T = 8                       # ticks of each mesh step
+TP_BAND = 3e-4                   # tests/test_parallel.py's band for TP
+HOSTPOD_T = 8                    # frames a slot of the two-process pod
+HOSTPOD_DEVICE = "cuda:0"        # each child process's device
+NOT_SCALING = "one card, device repeated: not a scaling figure"
+
+
+def mesh_devices(k: int) -> list:
+    """k devices for a mesh: distinct cards where the machine has k, else
+    its cards repeated."""
+    n = torch.cuda.device_count()
+    return [f"cuda:{i % n}" for i in range(k)]
+
+
+def stream_rows(params: dict, n: int) -> dict:
+    """Replicated live params as n rows, the stream-batched steps' form."""
+    return {k: np.repeat(np.asarray(v, np.float32)[None], n, 0)
+            for k, v in params.items()}
+
+
+def mesh_launches(label: str, launches: dict, ticks: int, n_stream: int,
+                  n_cell: int, kernels=("mip_pool_u8", "vision_stats",
+                                        "hann_peak_weighted_sum")) -> None:
+    """Fail unless a TP/DP tick launched each of ``kernels`` once a shard
+    (n_stream * n_cell: the vision and the contraction run on every device
+    of a row) and K4 once a stream row, and nothing else."""
+    want = {k: 0 for k in launches}
+    want.update({k: n_stream * n_cell * ticks for k in kernels})
+    want["agc_overlap_add"] = n_stream * ticks
+    if launches != want:
+        fail(f"{label}: launches {launches}, expected {want} in {ticks} "
+             f"ticks")
+
+
+def k2_mesh_entries(smi: str) -> list:
+    """K2 at the widths of the TP step's cell shards, NP = 496/2 = 248 and
+    496/4 = 124 (T = 2 streams of a shard, K = 4 stereo), against its plain
+    version with phase_k2's checks."""
+    from vaudio_torch.config import AuralizerConfig
+    from vaudio_torch.ops import spectrum_kernel as sk
+    cfg = AuralizerConfig(sample_rate=48000.0)
+    rng = np.random.default_rng(2)
+    F, T, K = cfg.num_bins, 2, 4
+    freqs = torch.as_tensor(cfg.bin_frequencies(), device="cuda")
+    entries = []
+    for NP, path in ((248, "mesh_2x2_frame"), (124, "mesh_2x4_frame")):
+        pf = torch.as_tensor(rng.uniform(20, 20000, (T, NP)).astype(
+            np.float32), device="cuda")
+        scale = torch.as_tensor((rng.choice([1.0, 0.2], (T, NP))
+                                 / cfg.bin_width).astype(np.float32),
+                                device="cuda")
+        w = torch.as_tensor(rng.normal(0, 0.1, (T, NP, K)).astype(
+            np.float32), device="cuda")
+        got = sk.hann_peak_weighted_sum(freqs, pf, scale, w)
+        ref = sk.hann_peak_weighted_sum_plain(freqs, pf, scale, w)
+        err = float((got - ref).abs().max())
+        if got.shape != (T, F, K) or not err <= 1e-5:
+            fail(f"K2 NP={NP} T={T}: shape {tuple(got.shape)}, differs "
+                 f"from the plain version by {err:.3e}")
+        check_batch_independent(
+            f"K2 NP={NP}", lambda *a: (sk.hann_peak_weighted_sum(freqs, *a),),
+            (pf, scale, w), T)
+        e = entry(f"hann_peak_weighted_sum_np{NP}",
+                  "vaudio_torch/csrc/spectrum_kernel.cu",
+                  "vaudio/ops/spectrum_kernel.py:71", err,
+                  lambda: sk.hann_peak_weighted_sum(freqs, pf, scale, w),
+                  lambda: sk.hann_peak_weighted_sum_plain(freqs, pf, scale,
+                                                          w),
+                  nbytes=4 * (F + T * NP * (2 + K) + T * F * K),
+                  ops=T * F * NP * (K2_PEAK_OPS + 2 * K), path=path,
+                  counter="hann_peak_weighted_sum")
+        say(f"K2 hann_peak_weighted_sum at a cell shard's width, T={T} "
+            f"F={F} NP={NP} K={K}: max_abs_err {err:.3e}; frames 0 and T-1 "
+            f"equal to T=1 calls and two calls equal, bit for bit; "
+            f"{timing(e)}; {share(e)} ({smi})")
+        entries.append(e)
+    return entries
+
+
+def phase_mesh(frames: np.ndarray, smi: str):
+    """The local meshes of vaudio_torch.parallel over the card (its device
+    repeated where it has fewer cards than shards) at the live
+    configuration, S = 4 slots of 1080p: make_parallel_step on (2,1),
+    (1,2), (2,2) and (2,4) for 8 ticks against the one-device batched
+    step (DP bit for bit, TP within 3e-4, hues equal), its launches a tick
+    and cell sums; make_parallel_chunk_step and OrthoModes'
+    make_engine_parallel_step on (2,1) in chunks of 8; the mesh pod per
+    frame on every shape and in chunks of 8 on (2,1) against the
+    one-device pod; K2 at the cell shards' widths; dryrun_multichip(4).
+    Returns (counts by path, the K2 entries)."""
+    from vaudio_torch.config import LiveParams
+    from vaudio_torch.parallel import (init_carry_batch, make_batched_step,
+                                       make_engine_parallel_step,
+                                       make_parallel_chunk_step,
+                                       make_parallel_step, make_stream_mesh,
+                                       sharding)
+    from vaudio_torch.parallel.dryrun import dryrun_multichip
+    from vaudio_torch.runtime import MultiStreamAuralizer
+    from vaudio_torch.runtime.engine import AuralizerEngine, OrthoModesEngine
+    t_phase = time.perf_counter()
+    cfg = live_config()
+    params = LiveParams().as_arrays()
+    S = POD_S
+    clips = [frames[POD_T * k:POD_T * (k + 1)] for k in range(S)]
+    shape = "x".join(map(str, frames.shape[1:3]))
+    counts = {}
+
+    def tick(t):
+        return np.stack([c[t] for c in clips])
+
+    def chunk(c):
+        return np.stack([x[LIVE_CHUNK * c:LIVE_CHUNK * (c + 1)]
+                         for x in clips])
+
+    def mesh(n_stream, n_cell):
+        return make_stream_mesh(n_stream, n_cell,
+                                devices=mesh_devices(n_stream * n_cell))
+
+    # -- the per-frame steps against the one-device batched step ---------
+    one = make_batched_step(cfg)
+    carry = init_carry_batch(cfg, S)
+    ref = []
+    for t in range(MESH_T):
+        carry, out = one(carry, tick(t), params)
+        ref.append(out["pcm"].cpu().numpy())
+    ref_hues = carry.hues.cpu().numpy()
+    for n_stream, n_cell in MESH_SHAPES:
+        label = f"mesh ({n_stream},{n_cell}) make_parallel_step"
+        step = make_parallel_step(cfg, mesh(n_stream, n_cell))
+        torch.cuda.synchronize()
+        reset_counts()
+        sums = sharding.cell_reductions
+        carry = init_carry_batch(cfg, S)
+        got = []
+        for t in range(MESH_T):
+            carry, out = step(carry, tick(t), params)
+            got.append(out["pcm"].numpy())
+        launches = read_counts()
+        sums = sharding.cell_reductions - sums
+        mesh_launches(label, launches, MESH_T, n_stream, n_cell)
+        if sums != (n_stream * MESH_T if n_cell > 1 else 0):
+            fail(f"{label}: {sums} cell sums in {MESH_T} ticks")
+        err = max(float(np.abs(g - r).max()) for g, r in zip(got, ref))
+        exact = all(np.array_equal(g, r) for g, r in zip(got, ref))
+        if (n_cell == 1 and not exact) or not err <= TP_BAND:
+            fail(f"{label}: PCM differs from the one-device step by "
+                 f"{err:.3e} ({'bit for bit' if n_cell == 1 else TP_BAND} "
+                 f"asked)")
+        if not np.array_equal(carry.gather().hues.numpy(), ref_hues):
+            fail(f"{label}: hues differ from the one-device step's")
+        counts[f"mesh_{n_stream}x{n_cell}_frame"] = launches
+        say(f"mesh: {label}, S={S} {shape} stereo, {MESH_T} ticks on "
+            f"{mesh_devices(n_stream * n_cell)}: PCM "
+            + ("equal to the one-device step bit for bit" if exact else
+               f"within {err:.3e} of the one-device step (band {TP_BAND})")
+            + f", hues equal; launches {launches}, {sums} cell sums "
+            f"({smi})")
+
+    # -- DP chunk step and the OrthoModes engine step on (2, 1) ----------
+    eng = AuralizerEngine(cfg)
+    one_chunk = eng.raw_chunk_step()
+    stepc = make_parallel_chunk_step(cfg, mesh(2, 1))
+    rows = stream_rows(params, S)
+    carry_r, carry_m = init_carry_batch(cfg, S), init_carry_batch(cfg, S)
+    ref, got = [], []
+    for c in range(POD_T // LIVE_CHUNK):
+        carry_r, out = one_chunk(carry_r, torch.as_tensor(chunk(c)).cuda(),
+                                 rows)
+        ref.append(out["pcm"].cpu().numpy())
+    torch.cuda.synchronize()
+    reset_counts()
+    for c in range(POD_T // LIVE_CHUNK):
+        carry_m, out = stepc(carry_m, chunk(c), params)
+        got.append(out["pcm"].numpy())
+    launches = read_counts()
+    n_chunks = POD_T // LIVE_CHUNK
+    mesh_launches("mesh (2,1) chunk step", launches, n_chunks, 2, 1)
+    err = max(float(np.abs(g - r).max()) for g, r in zip(got, ref))
+    if not err <= POD_BAND or not np.array_equal(
+            carry_m.gather().hues.numpy(), carry_r.hues.cpu().numpy()):
+        fail(f"mesh (2,1) make_parallel_chunk_step: PCM differs from the "
+             f"one-device chunk step by {err:.3e} (band {POD_BAND}) or the "
+             f"hues differ")
+    counts["mesh_2x1_chunk"] = launches
+    say(f"mesh: (2,1) make_parallel_chunk_step, {n_chunks} chunks of "
+        f"{LIVE_CHUNK}: PCM within {err:.3e} of the one-device chunk step "
+        f"(band {POD_BAND}), hues equal; launches {launches} ({smi})")
+
+    ocfg = ortho_config()
+    oeng = OrthoModesEngine(ocfg)
+    oparams = oeng.params_arrays(LiveParams())
+    ostep = make_engine_parallel_step(oeng, mesh(2, 1), chunk=True)
+    ocarry_r = ocarry_m = oeng.init_carry_batch(S, clips[0][0])
+    ref, got = [], []
+    for c in range(n_chunks):
+        ocarry_r, out = oeng.raw_chunk_step()(
+            ocarry_r, torch.as_tensor(chunk(c)).cuda(),
+            stream_rows(oparams, S))
+        ref.append(out["pcm"].cpu().numpy())
+    torch.cuda.synchronize()
+    reset_counts()
+    for c in range(n_chunks):
+        ocarry_m, out = ostep(ocarry_m, chunk(c), oparams)
+        got.append(out["pcm"].numpy())
+    launches = read_counts()
+    want = {k: 0 for k in launches}
+    want.update(mip_pool_u8=2 * n_chunks, agc_overlap_add=2 * n_chunks)
+    if launches != want or not all(np.array_equal(g, r)
+                                   for g, r in zip(got, ref)):
+        fail(f"mesh (2,1) OrthoModes engine step: launches {launches} "
+             f"(expected {want}) or PCM not equal to the one-device engine "
+             f"step bit for bit")
+    counts["mesh_2x1_ortho_chunk"] = launches
+    say(f"mesh: (2,1) make_engine_parallel_step OrthoModes mono mip "
+        f"{ORTHO_MIP}, {n_chunks} chunks of {LIVE_CHUNK}: PCM equal to the "
+        f"one-device engine step bit for bit; launches {launches} ({smi})")
+
+    # -- the mesh pod against the one-device pod ---------------------------
+    shared = LiveParams()
+
+    def pod_run(mesh_shape, chunk_frames, n_frames=POD_T):
+        pod = MultiStreamAuralizer(
+            cfg, n_streams=S, params=shared, engine=AuralizerEngine(cfg),
+            chunk_frames=chunk_frames,
+            mesh=None if mesh_shape is None else mesh(*mesh_shape))
+        wall = run_pod(pod, [c[:n_frames] for c in clips],
+                       f"mesh pod {mesh_shape}")
+        pcm = [pod.pull(i, n_frames * cfg.hop_size * 2) for i in range(S)]
+        hues = pod.snapshot_carry().hues
+        pod.stop()
+        return pcm, hues, 1e3 * wall / pod.metrics.dispatches, \
+            pod.metrics.dispatches
+
+    ms = {}
+    for chunk_frames, shapes in ((1, MESH_SHAPES), (LIVE_CHUNK, ((2, 1),))):
+        pod_run(None, chunk_frames, LIVE_CHUNK)            # warm-up
+        ref, ref_hues, ms[None, chunk_frames], _ = pod_run(None, chunk_frames)
+        for mesh_shape in shapes:
+            pod_run(mesh_shape, chunk_frames, LIVE_CHUNK)  # warm-up
+            torch.cuda.synchronize()
+            reset_counts()
+            pcm, hues, ms[mesh_shape, chunk_frames], ticks = pod_run(
+                mesh_shape, chunk_frames)
+            launches = read_counts()
+            label = f"mesh pod {mesh_shape} chunk_frames={chunk_frames}"
+            mesh_launches(label, launches, ticks, *mesh_shape)
+            err = max(float(np.abs(g - r).max()) for g, r in zip(pcm, ref))
+            exact = all(np.array_equal(g, r) for g, r in zip(pcm, ref))
+            band = POD_BAND if chunk_frames > 1 else TP_BAND
+            if (chunk_frames == 1 and mesh_shape[1] == 1 and not exact) \
+                    or not err <= band or not np.array_equal(hues, ref_hues) \
+                    or not min(np.abs(g).max() for g in pcm) > 1e-3:
+                fail(f"{label}: a slot differs from the one-device pod's by "
+                     f"{err:.3e} (band {band}), its hues differ, or it is "
+                     f"silent")
+            path = f"mesh_pod_{mesh_shape[0]}x{mesh_shape[1]}_" + (
+                "frame" if chunk_frames == 1 else "chunk")
+            counts[path] = launches
+            say(f"mesh: {label}, S={S} {shape} stereo, {POD_T} frames a "
+                f"slot: every slot "
+                + ("equal to the one-device pod's bit for bit" if exact
+                   else f"within {err:.3e} of the one-device pod's")
+                + f", hues equal; launches {launches} in {ticks} ticks "
+                f"({smi})")
+    for mesh_shape in ((2, 1), (2, 2)):
+        rows, wall_ms = profiled(lambda: pod_run(mesh_shape, 1))
+        say(pod_profile_line(f"mesh pod {mesh_shape} chunk_frames=1 "
+                             f"({NOT_SCALING})", rows, wall_ms, POD_T, smi))
+    say("mesh: pod ms a tick in this run (" + NOT_SCALING + "): "
+        + "; ".join(f"{'one device' if k[0] is None else k[0]} "
+                    f"chunk_frames={k[1]} {v:.3f}" for k, v in ms.items())
+        + f" ({smi})")
+
+    entries = k2_mesh_entries(smi)
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()) as line:
+        dryrun_multichip(4)
+    say(f"mesh: {line.getvalue().strip()} in "
+        f"{time.perf_counter() - t0:.1f} s; the phase "
+        f"{time.perf_counter() - t_phase:.1f} s ({smi})")
+    return counts, entries
+
+
+def phase_hostpod(frames: np.ndarray, smi: str) -> dict:
+    """Two child processes on the card run tests/torch_hostpod_driver.py:
+    one 4-slot global MultiHostPod at the live configuration, 8 frames of
+    1080p a slot, per frame and in chunks of 8, joined through
+    torch.distributed on Gloo (host flags), each child's device cuda:0.
+    Every global slot against the single-process pod (bit for bit per
+    frame, within 2e-6 in chunks), each child's launches a tick; then a
+    world-of-one MultiHostAuralizer through init_distributed.  The
+    children get the watchdog's remaining time and are killed past it.
+    Returns the counts by path (both children's launches)."""
+    from vaudio_torch.config import AuralizerConfig, LiveParams
+    from vaudio_torch.parallel import (MultiHostAuralizer, init_distributed,
+                                       make_multihost_mesh)
+    from vaudio_torch.runtime import MultiStreamAuralizer, chunked
+    from vaudio_torch.runtime.engine import AuralizerEngine
+    t_phase = time.perf_counter()
+    cfg = live_config()
+    default = AuralizerConfig()
+    fields = {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)
+              if getattr(cfg, f.name) != getattr(default, f.name)}
+    S, T = POD_S, HOSTPOD_T
+    clips = np.stack([frames[POD_T * k:POD_T * k + T] for k in range(S)])
+    root = Path(__file__).resolve().parent
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(root)] + [p for p in env.get("PYTHONPATH", "").split(os.pathsep)
+                       if p])
+    counts = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        np.save(f"{tmp}/clips.npy", clips)
+        for chunk_frames, path in ((1, "hostpod_frame"),
+                                   (LIVE_CHUNK, "hostpod_chunk")):
+            pod = MultiStreamAuralizer(cfg, n_streams=S,
+                                       engine=AuralizerEngine(cfg),
+                                       chunk_frames=chunk_frames)
+            run_pod(pod, list(clips), "single-process pod")
+            ref = [pod.pull(i, T * cfg.hop_size * 2) for i in range(S)]
+            pod.stop()
+            out = f"{tmp}/out{chunk_frames}"
+            os.mkdir(out)
+            with socket.socket() as sock:
+                sock.bind(("127.0.0.1", 0))
+                port = sock.getsockname()[1]
+            limit = max(30.0, min(300.0, _deadline - time.monotonic() - 30))
+            t0 = time.perf_counter()
+            procs = [subprocess.Popen(
+                [sys.executable, str(root / "tests/torch_hostpod_driver.py"),
+                 str(pid), "2", str(port), f"{tmp}/clips.npy", out,
+                 "--device", HOSTPOD_DEVICE, "--chunk", str(chunk_frames),
+                 "--config", json.dumps(fields), "--timeout", str(limit)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                env=env, cwd=root) for pid in (0, 1)]
+            logs = []
+            try:
+                for p in procs:
+                    logs.append(p.communicate(
+                        timeout=max(1.0, limit + 10 - (time.perf_counter()
+                                                       - t0)))[0])
+            except subprocess.TimeoutExpired:
+                fail(f"hostpod chunk_frames={chunk_frames}: a child still "
+                     f"runs after {limit:.0f} s")
+            finally:
+                for p in procs:
+                    if p.poll() is None:
+                        p.kill()
+                        p.wait()
+            wall = time.perf_counter() - t0
+            for pid, (p, log) in enumerate(zip(procs, logs)):
+                if p.returncode != 0:
+                    fail(f"hostpod chunk_frames={chunk_frames}: process "
+                         f"{pid} exited {p.returncode}:\n{log[-3000:]}")
+            infos = [json.loads(Path(f"{out}/proc_{pid}.json").read_text())
+                     for pid in (0, 1)]
+            errs = []
+            for g in range(S):
+                got = np.load(f"{out}/pcm_{g}.npy")
+                err = float(np.abs(got - ref[g]).max())
+                if (chunk_frames == 1 and not np.array_equal(got, ref[g])) \
+                        or not err <= POD_BAND \
+                        or not np.abs(got).max() > 1e-3:
+                    fail(f"hostpod chunk_frames={chunk_frames}: global slot "
+                         f"{g} differs from the single-process pod by "
+                         f"{err:.3e} or is silent")
+                errs.append(err)
+            for pid, info in enumerate(infos):
+                want = {k: info["ticks"] for k in info["launches"]}
+                if info["slots"] != [2 * pid, 2 * pid + 2] or \
+                        info["launches"] != want:
+                    fail(f"hostpod chunk_frames={chunk_frames}: process "
+                         f"{pid} served {info['slots']} with launches "
+                         f"{info['launches']} in {info['ticks']} ticks")
+            counts[path] = {k: 0 for k in kernel_modules()}
+            for info in infos:
+                for k, n in info["launches"].items():
+                    counts[path][k] += n
+            say(f"hostpod: two processes on {torch.cuda.get_device_name(0)}"
+                f" (Gloo on 127.0.0.1, {HOSTPOD_DEVICE} each), a 4-slot "
+                f"global pod, "
+                f"{T} frames of {'x'.join(map(str, clips.shape[2:4]))} a "
+                f"slot, chunk_frames={chunk_frames}: every global slot "
+                + ("equal to the single-process pod's bit for bit"
+                   if chunk_frames == 1 else
+                   f"within {max(errs):.3e} of the single-process pod's "
+                   f"(band {POD_BAND})")
+                + f"; each process {infos[0]['ticks']} ticks, K1-K4 once a "
+                f"tick, ms a tick {infos[0]['ms_per_tick']:.3f} / "
+                f"{infos[1]['ms_per_tick']:.3f} ({NOT_SCALING}); "
+                f"{wall:.1f} s with the processes' start ({smi})")
+    n = init_distributed()
+    if n != 1:
+        fail(f"init_distributed() outside torchrun gave {n} processes")
+    mh = MultiHostAuralizer(cfg, S, params=LiveParams().as_arrays(),
+                            mesh=make_multihost_mesh(devices=mesh_devices(2)))
+    local = mh.local_audio(mh.step(clips))
+    err = 0.0
+    for g in range(S):
+        ref, _, _ = chunked.run_offline_batched(clips[g], cfg, chunk=T,
+                                                device="cuda")
+        err = max(err, float(np.abs(local[g] - ref.cpu().numpy()).max()))
+    if not err <= POD_BAND:
+        fail(f"MultiHostAuralizer (world of one): differs from "
+             f"run_offline_batched by {err:.3e}")
+    say(f"hostpod: init_distributed() = 1 outside torchrun; a world-of-one "
+        f"MultiHostAuralizer over {mesh_devices(2)}, one chunk of {T}: "
+        f"within {err:.3e} of run_offline_batched (band {POD_BAND}); the "
+        f"phase {time.perf_counter() - t_phase:.1f} s ({smi})")
+    return counts
+
+
 def main() -> None:
     global _deadline
     if not torch.cuda.is_available():
@@ -2366,6 +2807,10 @@ def main() -> None:
     phase_ortho_resolution(frames, smi)
     counts.update(phase_pod(frames, yuv, smi))
     counts.update(phase_pod_serve(frames, yuv, smi))
+    mesh_counts, mesh_kernels = phase_mesh(frames, smi)
+    counts.update(mesh_counts)
+    kernels += mesh_kernels
+    counts.update(phase_hostpod(frames, smi))
     for k in kernels:
         base = k.pop("counter")
         k["launches"] = counts[k["path"]][base]

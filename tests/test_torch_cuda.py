@@ -16,7 +16,7 @@ import torch
 from torch_frames import (k4_args, k4_chained, k4_edge_frames, k4_forms,
                           k4_stream_args, k4_stream_forms, structured_frames,
                           structured_yuv_frames)
-from vaudio_torch.config import AuralizerConfig
+from vaudio_torch.config import AuralizerConfig, LiveParams
 from vaudio_torch.api import Auralizer
 from vaudio_torch.dsp.core import hann_sinc_peak_fast, hann_window_norm
 from vaudio_torch.ops import (audio_kernel, pool_kernel, spectrum_kernel,
@@ -962,3 +962,56 @@ def test_ortho_pod_on_the_card_equals_model_steps(dev):
         np.testing.assert_array_equal(p.pull(s, 8 * 2048),
                                       torch.cat(ref).cpu().numpy())
     p.stop()
+
+
+@pytest.mark.parametrize("NP", [248, 124])
+def test_k2_at_a_cell_shards_width_matches_plain(dev, gen, NP):
+    """K2 at the TP step's widths, NP = 496/2 and 496/4, T = 2 streams of a
+    shard, stereo: within 1e-5 of the plain version."""
+    cfg = AuralizerConfig()
+    T = 2
+    pf = gen.uniform(20, 20000, (T, NP)).astype(np.float32)
+    scale = (gen.choice([1.0, 0.2], (T, NP)) / cfg.bin_width
+             ).astype(np.float32)
+    w = gen.normal(0, 0.1, (T, NP, 4)).astype(np.float32)
+    args = [torch.as_tensor(x, device=dev)
+            for x in (cfg.bin_frequencies(), pf, scale, w)]
+    got = spectrum_kernel.hann_peak_weighted_sum(*args)
+    assert got.shape == (T, cfg.num_bins, 4)
+    assert float((got - spectrum_kernel.hann_peak_weighted_sum_plain(
+        *args)).abs().max()) <= 1e-5
+
+
+@pytest.mark.parametrize("shape", [(2, 1), (1, 2), (2, 2)])
+def test_mesh_step_on_the_card_equals_one_device(dev, shape):
+    """make_parallel_step over the card's device repeated, the live
+    configuration, 4 streams for 3 ticks: DP bit for bit against the
+    one-device batched step, TP within 3e-4 (tests/test_parallel.py's
+    band), hues equal; K1, K3 and K2 once a shard a tick, K4 once a
+    stream row."""
+    from vaudio_torch.parallel import (init_carry_batch, make_batched_step,
+                                       make_parallel_step, make_stream_mesh)
+    cfg = AuralizerConfig(channels=2, use_pallas=True,
+                          use_pallas_vision=True)
+    params = LiveParams().as_arrays()
+    frames = np.stack([structured_frames(40 + s, 3, 192, 256)
+                       for s in range(4)])
+    n_stream, n_cell = shape
+    mesh = make_stream_mesh(n_stream, n_cell,
+                            devices=["cuda:0"] * (n_stream * n_cell))
+    one, tp = make_batched_step(cfg), make_parallel_step(cfg, mesh)
+    carry_1, carry_m = init_carry_batch(cfg, 4), init_carry_batch(cfg, 4)
+    counters = [(pool_kernel, "launches"), (vision_kernel, "launches"),
+                (spectrum_kernel, "launches"), (audio_kernel, "launches")]
+    for t in range(3):
+        carry_1, out_1 = one(carry_1, frames[:, t], params)
+        before = [getattr(m, a) for m, a in counters]
+        carry_m, out_m = tp(carry_m, frames[:, t], params)
+        assert [getattr(m, a) - b for (m, a), b in zip(counters, before)] \
+            == [n_stream * n_cell] * 3 + [n_stream]
+        ref, got = out_1["pcm"].cpu().numpy(), out_m["pcm"].numpy()
+        if n_cell == 1:
+            np.testing.assert_array_equal(got, ref)
+        np.testing.assert_allclose(got, ref, rtol=0, atol=3e-4)
+    np.testing.assert_array_equal(carry_m.gather().hues.numpy(),
+                                  carry_1.hues.cpu().numpy())

@@ -259,14 +259,20 @@ def test_pod_checkpoints_cross_both_packages(tmp_path, family):
 
 @settings(max_examples=200, deadline=None)
 @given(n=st.integers(1, 12), free=st.sets(st.integers(0, 12)),
-       stop=st.integers(0, 13), held=st.sets(st.integers(0, 12)))
-def test_trailing_shrink_target_matches_jax(n, free, stop, held):
+       stop=st.integers(0, 13), held=st.sets(st.integers(0, 12)),
+       mesh_step=st.one_of(st.none(), st.integers(1, 4)))
+def test_trailing_shrink_target_matches_jax(n, free, stop, held, mesh_step):
+    """The port's derivation against the JAX function, with and without a
+    mesh pod's stream-axis rounding (``mesh_step``)."""
     def keep(i):
         return i in held
     for k in (None, keep):
-        assert (multistream.trailing_shrink_target(n, free, stop, keep)
-                == jax_multistream.trailing_shrink_target(n, free, stop,
-                                                          keep))
+        got = multistream.trailing_shrink_target(n, free, stop, k,
+                                                 mesh_step=mesh_step)
+        assert got == jax_multistream.trailing_shrink_target(
+            n, free, stop, k, mesh_step=mesh_step)
+        if mesh_step is not None:
+            assert got % mesh_step == 0 and got >= mesh_step
 
 
 def test_metrics_surface_matches_jax():

@@ -239,7 +239,9 @@ def test_import_and_slice_leave_jax_out(tmp_path):
     PodServer and driven by vaudio_torch.client, and the serving
     path: frames pushed over HTTP into a served PushSource stream (the C++
     ring), the control channel, the live debug surface, the debug views,
-    a checkpoint over HTTP and the native frame reader; with TF32 off."""
+    a checkpoint over HTTP and the native frame reader, and the multi-device
+    paths of vaudio_torch.parallel (dryrun_multichip over a repeated CPU
+    device); with TF32 off."""
     code = textwrap.dedent("""
         import sys
         import time
@@ -345,6 +347,10 @@ def test_import_and_slice_leave_jax_out(tmp_path):
         got = list(RawVideoSource(tmp + "/clip.rgb", 32, 32, native=True,
                                   zero_copy=True).frames())
         assert len(got) == 8
+        import contextlib
+        from vaudio_torch.parallel.dryrun import dryrun_multichip
+        with contextlib.redirect_stdout(io.StringIO()):
+            assert len(dryrun_multichip(2, devices=["cpu"])) == 4
         print(sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "vaudio")))
     """)

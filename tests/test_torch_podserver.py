@@ -1,7 +1,8 @@
 """The port's pod panel (vaudio_torch.runtime.podserver.PodServer,
 MultiStreamAuralizer.serve and its observe state) on the CPU: the cases of
-tests/test_podserver.py against the port (the mesh and CLI cases wait for
-the port's mesh and CLI), then the port held to the JAX package:
+tests/test_podserver.py against the port (the mesh pod's panel over
+``devices=["cpu"] * 8``; the CLI cases wait for the port's CLI), then the
+port held to the JAX package:
 
 - the same clips through a JAX pod behind the JAX PodServer and the port's
   pod behind the port's PodServer: each slot's PCM within 2e-5 (the port's
@@ -495,6 +496,45 @@ class TestSlotLeasingHTTP:
                                  {"shrink": True})
             assert status == 200 and resp["n_streams"] == 1
             assert p.n_streams == 1
+        finally:
+            server.stop()
+            p.stop()
+
+
+class TestMeshPodPanel:
+    def test_panel_on_mesh_sharded_pod(self):
+        """The panel works on a mesh pod: per-slot views render from the
+        SHARDED batched carry (the snapshot joins the shards), and the
+        broadcast respects the shared-params contract (applied once,
+        reported shared)."""
+        from vaudio.io import solid_color_frames
+        from vaudio_torch.parallel import make_stream_mesh
+
+        cfg = AuralizerConfig()
+        mesh = make_stream_mesh(8, 1, devices=["cpu"] * 8)  # stream-DP
+        shared = LiveParams()
+        p = pod(cfg, n_streams=8, params=shared, mesh=mesh)
+        server = p.serve(port=0)
+        clips = [solid_color_frames(
+            [0.2 + 0.1 * i, 0.9 - 0.1 * i, 0.3], 64, 64, 4)
+            for i in range(8)]
+        try:
+            p.start([iter(np.asarray(c)) for c in clips])
+            wait_done(p)
+            for s in (0, 7):
+                for view in ("hue_matrix", "spectrum"):
+                    status, ctype, body = _get(
+                        server.url + f"slots/{s}/debug/{view}.png")
+                    assert status == 200 and ctype == "image/png"
+                    _png_size(body)
+            status, resp = _post(server.url + "params", {"release": 0.25})
+            assert status == 200 and resp["shared"] is True
+            assert resp["slots_updated"] == 1      # one shared object
+            assert shared.release == 0.25
+            status, _, body = _get(server.url + "metrics.prom")
+            assert 'vaudio_slot_buffer_fill{slot="7"}' in body.decode()
+            status, _, body = _get(server.url + "state.npz")
+            assert np.load(io.BytesIO(body))["hues"].shape == (8, 16)
         finally:
             server.stop()
             p.stop()

@@ -23,7 +23,9 @@ step's parameters.  The contract is the JAX package's:
   (frames on the engine's device with a leading stream axis, a carry and
   params whose values lead with S), ``init_carry_batch(n, frame)`` and
   ``load_carry_batch(path, n)``.  Where the JAX package ``vmap``s its
-  one-stream step, these are the port's stream-batched steps.
+  one-stream step, these are the port's stream-batched steps;
+  ``on_device(device)`` gives the engine on a mesh shard's device
+  (:mod:`vaudio_torch.parallel`).
 """
 
 from __future__ import annotations
@@ -50,6 +52,10 @@ class AuralizerEngine:
         self.cfg = cfg
         self.debug = debug
         self.device = pick_device(device)
+
+    def on_device(self, device) -> "AuralizerEngine":
+        """This engine on ``device`` (a mesh shard's, ``parallel``)."""
+        return AuralizerEngine(self.cfg, debug=self.debug, device=device)
 
     def make_step(self):
         from vaudio_torch.runtime.step import make_step
@@ -166,6 +172,14 @@ class OrthoModesEngine:
         self.model = OrthoModesModel(model_cfg, multipliers=multipliers,
                                      device=device)
         self.device = self.model.device
+
+    def on_device(self, device) -> "OrthoModesEngine":
+        """This engine, its model config and multipliers, on ``device`` (a
+        mesh shard's, ``parallel``)."""
+        return OrthoModesEngine(self.cfg, debug=self.debug,
+                                model_cfg=self.model.cfg,
+                                multipliers=self.model.multipliers,
+                                device=device)
 
     # -- step functions ------------------------------------------------------
 

@@ -1,6 +1,6 @@
 """The multi-stream serving pod: N concurrent video streams through ONE
 batched device step per tick — the PyTorch port of
-:mod:`vaudio.runtime.multistream` (without its ``mesh``).
+:mod:`vaudio.runtime.multistream`.
 
 * N frame sources advance in lockstep, one frame per stream per tick (or
   ``chunk_frames`` per stream through the chunk-batched pipeline — the
@@ -12,7 +12,10 @@ batched device step per tick — the PyTorch port of
   axis, the serial recurrences keep S as a batch axis, and the audio
   tail's kernel K4 runs one cluster a stream, so every kernel on the path
   launches once a tick whatever S is.  The tick's frames go to the device
-  in one host->device copy of their stacked array;
+  in one host->device copy of their stacked array.  With a ``mesh``
+  (:class:`vaudio_torch.parallel.StreamMesh`) the streams are sharded over
+  its stream rows, one copy and one batched step a shard (the DP/TP mesh
+  steps of :mod:`vaudio_torch.parallel.sharding`);
 * per-stream ring buffers keep the reference's real-time sink contract
   (warm-up / zero-fill / drop-on-full, SoundEngine.swift:171-189,448)
   independently per stream;
@@ -84,26 +87,25 @@ def _stack(frames: Sequence):
     return np.stack(frames)
 
 
-def _to_device(stacked, device):
-    """A tick's stacked host frames (an array or a dict of planes) on
-    ``device``: one pageable copy an array, complete when it returns."""
-    if isinstance(stacked, dict):
-        return {k: torch.as_tensor(v).to(device) for k, v in stacked.items()}
-    return torch.as_tensor(stacked).to(device)
+def _is_sharded(x) -> bool:
+    from vaudio_torch.parallel.sharding import StreamShards
+    return isinstance(x, StreamShards)
 
 
 def trailing_shrink_target(n_streams: int, free, stop: int = 1,
-                           keep=None) -> int:
+                           keep=None, mesh_step=None) -> int:
     """The ONE trailing-shrink derivation (pure): smallest slot count >=
     ``stop`` whose trailing slots ``n..n_streams-1`` are all in ``free``
-    and not held back by ``keep(i) -> True``; floor 1.  Shared by the idle
-    check, the apply-time revalidation, and ``release_slot(shrink=True)``.
-    (The JAX function's ``mesh_step`` belongs to its multi-device pod,
-    which the port does not have yet.)"""
+    and not held back by ``keep(i) -> True``, rounded up to ``mesh_step``;
+    floor 1.  Shared by the idle check, the apply-time revalidation, and
+    ``release_slot(shrink=True)``."""
     n_new = n_streams
     while (n_new > max(1, stop) and (n_new - 1) in free
            and (keep is None or not keep(n_new - 1))):
         n_new -= 1
+    if mesh_step is not None:
+        n_new = max(mesh_step,
+                    ((n_new + mesh_step - 1) // mesh_step) * mesh_step)
     return n_new
 
 
@@ -121,7 +123,7 @@ def _fresh_rows(carry, n_add: int):
 class MultiStreamAuralizer:
     """Serve N concurrent video->audio streams from one batched step a tick.
 
-    Args, as the JAX package's (without its ``mesh``):
+    Args, as the JAX package's:
       cfg: static configuration shared by every stream in the pod.
       n_streams: number of serving slots (the batch shape; elastically
         resizable live — see :meth:`resize`).
@@ -137,6 +139,12 @@ class MultiStreamAuralizer:
         (the stream-batched frame step per tick); >1 = the chunk-batched
         pipeline (runtime.chunked), at the cost of chunk_frames-1 frame
         times of buffering.
+      mesh: optional :class:`vaudio_torch.parallel.StreamMesh` with a
+        ``'stream'`` axis (and ``'cell'`` for TP when chunk_frames == 1).
+        Streams are sharded over the mesh; ``n_streams`` must be a
+        multiple of the stream axis.  Mesh mode requires a single SHARED
+        ``params`` object (the parallel steps replicate params; per-slot
+        control needs the single-device mode).
       exit_when_exhausted: producer exits once every source has ended
         (True — batch-job semantics) or idles awaiting
         :meth:`replace_source` re-arms until :meth:`stop` (False —
@@ -162,6 +170,7 @@ class MultiStreamAuralizer:
                  realtime: bool = False,
                  prefer_native: bool = True,
                  chunk_frames: int = 1,
+                 mesh=None,
                  exit_when_exhausted: bool = True,
                  metrics_log: Optional[str] = None,
                  engine=None,
@@ -178,11 +187,18 @@ class MultiStreamAuralizer:
             engine = AuralizerEngine(cfg)
         elif getattr(engine, "cfg", cfg) is not cfg:
             cfg = engine.cfg        # engine may coerce (mono orthomodes)
+        if (mesh is not None and engine.name != "auralizer"
+                and mesh.shape.get("cell", 1) != 1):
+            raise ValueError(
+                "a 'cell' mesh axis > 1 is flagship-specific tensor "
+                "parallelism; other families mesh-shard over 'stream' "
+                "only (DP) — build the mesh with n_cell=1")
         self.engine = engine
         self.cfg = cfg
         self.n_streams = int(n_streams)
         self.realtime = realtime
         self.chunk_frames = max(1, int(chunk_frames))
+        self._mesh = mesh
         self._exit_when_exhausted = exit_when_exhausted
 
         if params is None:
@@ -196,12 +212,25 @@ class MultiStreamAuralizer:
                 raise ValueError(
                     f"params sequence length {len(self.params)} != "
                     f"n_streams {n_streams}")
+        if mesh is not None:
+            if "stream" not in mesh.shape:
+                raise ValueError("mesh needs a 'stream' axis")
+            if n_streams % mesh.shape["stream"]:
+                raise ValueError(
+                    f"n_streams {n_streams} not a multiple of the mesh "
+                    f"stream axis {mesh.shape['stream']}")
+            if len(set(map(id, self.params))) != 1:
+                raise ValueError(
+                    "mesh mode replicates params across devices and so "
+                    "requires one shared LiveParams object; per-slot "
+                    "params need the single-device mode (mesh=None)")
 
         self._step = self._build_step()
         # Frame-sized carries (engine.carry_static False) defer to the
         # first dispatch.
-        self._carry = (engine.init_carry_batch(self.n_streams)
-                       if engine.carry_static else None)
+        self._carry = (self._shard_put(
+            engine.init_carry_batch(self.n_streams))
+            if engine.carry_static else None)
         # False while a frame-sized carry needs first-tick validation
         # (set False by load_state restores).
         self._carry_checked = engine.carry_static
@@ -302,13 +331,51 @@ class MultiStreamAuralizer:
     def _build_step(self):
         """The engine's stream-batched step (flagship: the frame step or
         the chunk pipeline; other families their own), one call a tick for
-        every slot; per-stream params ride the leading axis."""
+        every slot; per-stream params ride the leading axis.  Under a
+        mesh, the mesh steps of :mod:`vaudio_torch.parallel.sharding`."""
+        if self._mesh is not None:
+            from vaudio_torch.parallel.sharding import (
+                make_engine_parallel_step, make_parallel_chunk_step,
+                make_parallel_step)
+            if self.engine.name != "auralizer":
+                # Model-agnostic DP: the engine's raw step on each shard
+                # (no TP — cell-sharded synthesis is flagship structure
+                # other families lack).
+                return make_engine_parallel_step(
+                    self.engine, self._mesh, chunk=self.chunk_frames > 1)
+            if self.chunk_frames > 1:
+                return make_parallel_chunk_step(self.cfg, self._mesh)
+            return make_parallel_step(self.cfg, self._mesh)
         return (self.engine.raw_chunk_step() if self.chunk_frames > 1
                 else self.engine.raw_step())
 
+    def _shard_put(self, tree):
+        """Place a host or device tree whose leading axis is the slots: on
+        the engine's device, or under a mesh sharded over its stream rows
+        (a :class:`~vaudio_torch.parallel.sharding.StreamShards`)."""
+        from vaudio_torch.parallel.sharding import _tree_map, shard_put
+        if self._mesh is None:
+            dev = self.engine.device
+            return _tree_map(lambda x: torch.as_tensor(x).to(dev), tree)
+        return shard_put(self._mesh, tree)
+
+    def _local_carry(self):
+        """The carry as one tree (a mesh's shards joined on the host);
+        caller holds ``_carry_lock``."""
+        c = self._carry
+        return c.gather("cpu") if _is_sharded(c) else c
+
+    def _map_carry(self, fn):
+        """``fn`` applied to the carry, shard by shard under a mesh."""
+        c = self._carry
+        return c.map(fn) if _is_sharded(c) else fn(c)
+
     def _stack_params(self):
         """Per-slot LiveParams -> one dict of (S, ...) host arrays (the
-        step copies each to the device once)."""
+        step copies each to the device once), or the single replicated
+        dict (mesh mode)."""
+        if self._mesh is not None:
+            return self.engine.params_arrays(self.params[0])
         with self.params_lock:
             dicts = [self.engine.params_arrays(p) for p in self.params]
         keys = set(dicts[0])
@@ -379,8 +446,8 @@ class MultiStreamAuralizer:
             ring.reset()
         with self._carry_lock:
             if self._carry is not None:   # frame-sized carry, no tick yet
-                self._carry = self._carry._replace(
-                    ola_tail=torch.zeros_like(self._carry.ola_tail))
+                self._carry = self._map_carry(lambda c: c._replace(
+                    ola_tail=torch.zeros_like(c.ola_tail)))
 
     def replace_source(self, slot: int, source: Iterable,
                        reset_carry: bool = False) -> None:
@@ -403,7 +470,7 @@ class MultiStreamAuralizer:
 
         Growth appends dark slots (cold DSP state, empty rings, an
         independent copy of slot 0's :class:`LiveParams` per new slot —
-        or the pod's one shared object in shared-params mode) that are
+        or the pod's one shared object in mesh/shared-params mode) that are
         armed later with :meth:`replace_source` / :meth:`arm_push`.
         Shrink drops the HIGHEST slots: their sources, rings, params and
         DSP state are discarded (pull anything you still need first).
@@ -414,8 +481,9 @@ class MultiStreamAuralizer:
         Running pods apply the resize at the producer's next dispatch
         boundary (for ``chunk_frames>1``, the next chunk boundary) and
         this call blocks until it lands; stopped pods resize immediately.
-        The pod's static frame shape/dtype contract is unchanged — resize
-        changes capacity, not resolution.  A pod whose slots all share
+        Mesh pods: ``n_streams`` must stay a multiple of the mesh's stream
+        axis.  The pod's static frame shape/dtype contract is unchanged —
+        resize changes capacity, not resolution.  A pod whose slots all share
         ONE ``LiveParams`` object grows with that same object; a 1-slot
         pod is treated as per-slot.
         """
@@ -426,6 +494,10 @@ class MultiStreamAuralizer:
             raise ValueError(
                 f"n_streams {n_new} exceeds max_streams "
                 f"{self.max_streams}")
+        if self._mesh is not None and n_new % self._mesh.shape["stream"]:
+            raise ValueError(
+                f"n_streams {n_new} not a multiple of the mesh stream "
+                f"axis {self._mesh.shape['stream']}")
         with self._resize_serial:
             self._resize_locked(n_new, timeout)
 
@@ -467,9 +539,12 @@ class MultiStreamAuralizer:
         self._apply_resize(n_new)      # producer already gone
 
     def _shrink_target(self, free, stop: int = 1, keep=None) -> int:
-        """:func:`trailing_shrink_target` bound to this pod's slot count."""
-        return trailing_shrink_target(self.n_streams, free, stop=stop,
-                                      keep=keep)
+        """:func:`trailing_shrink_target` bound to this pod's slot count
+        and mesh."""
+        return trailing_shrink_target(
+            self.n_streams, free, stop=stop, keep=keep,
+            mesh_step=(self._mesh.shape["stream"]
+                       if self._mesh is not None else None))
 
     def _maybe_idle_shrink(self) -> None:
         """Automatic capacity return (see :attr:`idle_shrink`): when the
@@ -520,14 +595,15 @@ class MultiStreamAuralizer:
             return
         with self._carry_lock:
             if self._carry is not None:
-                c = self._carry
+                c = self._local_carry()
                 if n_new < old:
                     c = type(c)(*(x[:n_new] for x in c))
                 else:
                     c = type(c)(*(torch.cat([a, b]) for a, b in
                                   zip(c, _fresh_rows(c, n_new - old))))
-                self._carry = c
-        shared = old > 1 and len(set(map(id, self.params))) == 1
+                self._carry = self._shard_put(c)
+        shared = (self._mesh is not None
+                  or (old > 1 and len(set(map(id, self.params))) == 1))
         if n_new > old:
             add = n_new - old
             # Per-slot mode: new slots get an independent COPY of slot
@@ -624,11 +700,15 @@ class MultiStreamAuralizer:
         cold DSP carry by default.  Returns ``(slot, PushSource)``.
 
         Raises ``RuntimeError`` when every slot is leased and the pod is
-        at ``max_streams``."""
+        at ``max_streams``.  Mesh pods grow by a whole stream-axis multiple
+        (the resize contract)."""
         with self._lease_lock:
             free = self.free_slots()
             if not free:
                 want = self.n_streams + 1
+                if self._mesh is not None:
+                    axis = self._mesh.shape["stream"]
+                    want = (self.n_streams // axis + 1) * axis
                 if self.max_streams is not None and want > self.max_streams:
                     raise RuntimeError(
                         f"pod at capacity: {self.n_streams} slots all "
@@ -719,10 +799,10 @@ class MultiStreamAuralizer:
                 with self._carry_lock:
                     if self._carry is None:
                         continue     # frame-sized carry: nothing to reset
-                    c = self._carry
-                    self._carry = type(c)(*(
+                    c = self._local_carry()
+                    self._carry = self._shard_put(type(c)(*(
                         torch.cat([x[:slot], f, x[slot + 1:]])
-                        for x, f in zip(c, _fresh_rows(c, 1))))
+                        for x, f in zip(c, _fresh_rows(c, 1)))))
 
     # -- consumers -----------------------------------------------------------
 
@@ -739,8 +819,8 @@ class MultiStreamAuralizer:
                 raise ValueError(
                     "no DSP carry yet: this engine sizes it from the "
                     "first tick and none has been processed")
-            return type(self._carry)(*[x.cpu().numpy()
-                                       for x in self._carry])
+            c = self._local_carry()
+            return type(c)(*[x.cpu().numpy() for x in c])
 
     def save_state(self, path: str) -> None:
         """Checkpoint every slot's DSP carry to one .npz (safe while the
@@ -752,7 +832,8 @@ class MultiStreamAuralizer:
         """Restore a pod checkpoint (engine-aware: shape-validated against
         the config AND the pod size); the next tick continues every
         slot's stream seamlessly."""
-        carry = self.engine.load_carry_batch(path, self.n_streams)
+        carry = self._shard_put(
+            self.engine.load_carry_batch(path, self.n_streams))
         with self._carry_lock:
             self._carry = carry
             self._carry_checked = self.engine.carry_static
@@ -894,8 +975,11 @@ class MultiStreamAuralizer:
         return frames, real
 
     def _fetch_pcm(self, out) -> np.ndarray:
-        """A dispatch's PCM on the host (waits for the device)."""
-        return out["pcm"].cpu().numpy()
+        """A dispatch's PCM on the host (waits for the device), a mesh's
+        shards joined in slot order."""
+        pcm = out["pcm"]
+        return pcm.gather("cpu").numpy() if _is_sharded(pcm) \
+            else pcm.cpu().numpy()
 
     def _all_inactive(self) -> bool:
         """True when no slot has a live source."""
@@ -960,16 +1044,19 @@ class MultiStreamAuralizer:
                 # instead validated against the actual frame.
                 with self._carry_lock:
                     if self._carry is None:
-                        self._carry = self.engine.init_carry_batch(
-                            self.n_streams, f0)
+                        self._carry = self._shard_put(
+                            self.engine.init_carry_batch(self.n_streams,
+                                                         f0))
                         self._carry_checked = True
                 if not self._carry_checked:
-                    err = self.engine.carry_mismatch(self._carry, f0)
+                    c = self._carry
+                    err = self.engine.carry_mismatch(
+                        c[0] if _is_sharded(c) else c, f0)
                     if err is not None:
                         raise ValueError(err)
                     self._carry_checked = True
             params = self._stack_params()
-            batch = _to_device(stacked, self.engine.device)
+            batch = self._shard_put(stacked)
             with self._carry_lock:
                 self._carry, out = self._step(self._carry, batch, params)
             if pending is not None:

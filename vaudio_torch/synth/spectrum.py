@@ -204,13 +204,25 @@ def phase_accumulate(phases, hues, cfg: AuralizerConfig,
 # ---------------------------------------------------------------------------
 
 def partial_weights(hues, grads, phases, cfg: AuralizerConfig,
-                    consts: SynthConstants):
+                    consts: SynthConstants, cell_slice=None):
     """Per-partial frequencies and complex weights (SpectrumCompute.metal
     :102-195): returns (pfreq f32[..., C, P], w_re, w_im, inv_bw f32[..., C])
     with gain, per-cell normalization, frequency compensation and validity
-    folded into the weights."""
+    folded into the weights.
+
+    ``cell_slice=(start, count)`` restricts the computation to ``count``
+    cells from ``start`` (the cell axis of ``parallel.sharding``'s
+    tensor-parallel step): the hues, gradients, hash phases and gather
+    indices are sliced, while ``phases`` stays whole, since the
+    quirk-compat reads cross cell boundaries (stride 22 against 32)."""
     nh = cfg.num_harmonics
     freqs = consts.freqs
+    seed_phase, read_idx = consts.seed_phase, consts.read_idx
+    if cell_slice is not None:
+        start, count = cell_slice
+        cells = slice(start, start + count)
+        hues, grads = hues[..., cells], grads[..., cells, :]
+        seed_phase, read_idx = seed_phase[cells], read_idx[cells]
 
     valid = (hues >= 0) & (hues <= 360)
     f0 = freqs[find_closest_index(
@@ -246,8 +258,8 @@ def partial_weights(hues, grads, phases, cfg: AuralizerConfig,
     gain = torch.cat([base[..., :nh] * tilt, base[..., nh:]], dim=-1)
 
     # Phases: hash seed + accumulated velocity, read through the quirk.
-    vel = phases.flatten(-2)[..., consts.read_idx.long()]
-    phase = consts.seed_phase + vel
+    vel = phases.flatten(-2)[..., read_idx.long()]
+    phase = seed_phase + vel
 
     comp = torch.sqrt(f0 / float(np.float32(cfg.f0_base)))
     norm = (1.0 / torch.clamp(total_gain, min=0.001)) \
@@ -318,9 +330,11 @@ def spectral_filter_gain(freqs, hp_cutoff, lp_cutoff, hp_order, lp_order):
 
 
 def flatten_partials(pfreq, w_re, w_im, inv_bw, cfg: AuralizerConfig,
-                     pan=None):
+                     cell_slice=None, pan=None):
     """Flatten per-cell partials into contraction operands, folding the
-    stereo pan into the weights (column order [L_re, L_im, R_re, R_im]).
+    stereo pan into the weights (column order [L_re, L_im, R_re, R_im]);
+    ``cell_slice=(start, count)`` slices the pan gains to the cells of
+    :func:`partial_weights`' ``cell_slice``.
 
     Returns (flat_pf f32[..., NP], flat_w f32[..., NP, 2*channels],
     flat_ibw f32[..., NP]).
@@ -335,6 +349,9 @@ def flatten_partials(pfreq, w_re, w_im, inv_bw, cfg: AuralizerConfig,
     if cfg.channels == 2:
         if pan is None:
             pan = torch.as_tensor(cell_pan_gains(cfg), device=pfreq.device)
+        if cell_slice is not None:
+            start, count = cell_slice
+            pan = pan[..., start:start + count, :]
         pan_flat = torch.repeat_interleave(pan, P, dim=-2)  # ([S,] NP, 2)
         flat_w = (pan_flat[..., None] * flat_w[..., None, :]).reshape(
             lead + (nc * P, cfg.channels * 2))
