@@ -172,7 +172,33 @@ Phases, one line each; any failure exits non-zero:
     2e-6 in chunks), each child's K1-K4 once a tick and its ms a tick
     after a warm-up pod; a child still running past the watchdog's
     remaining time is killed and the phase fails; then a world-of-one
-    ``MultiHostAuralizer`` through ``init_distributed``.
+    ``MultiHostAuralizer`` through ``init_distributed``;
+27. the command line, each command a process of its own from the
+    repository's root with the repository on PYTHONPATH, on the card by
+    default, loading the kernels phase_build built (counted runs go
+    through ``CLI_PRELUDE``, which runs the package's ``__main__`` as
+    ``python -m vaudio_torch`` does and writes the launch counts and the
+    start-up's parts at exit), 1080p at 48 kHz: ``sonify`` of 64 .npy
+    frames stereo with ``--pallas`` and mono ``--model orthomodes`` (each
+    WAV equal bit for bit to the in-process ``sonify_to_wav``'s; K1, K2 and
+    K4 once, OrthoModes K1 and K4); ``stream`` in pipe mode from a raw
+    rgb24 file of 64 frames, per frame and in chunks of 8 (stdout's PCM
+    equal bit for bit to the in-process run with the dispatches read from
+    ``--metrics-log``; K1, K2' or K2 and K4 once a dispatch); ``stream
+    --trace`` on 16 frames (the torch.profiler trace shows K1, K2' and K4
+    16 times each); ``pod`` with 4 raw rgb24 file slots of 16 frames per
+    frame (each slotN.wav equal to the in-process pod's bit for bit); ``pod
+    --serve`` with a ``push`` and a ``push:dark`` slot fed by a ``push``
+    process of 16 .npy frames and read by a ``pull`` process (exit 0, every
+    frame taken, no slot failed, the WAVs finite and non-empty); two ``pod
+    --coordinator`` processes on Gloo with 2 slots of 8 frames each (every
+    global slot equal to the single-process pod's bit for bit); ``doctor
+    --json`` (no fail, the card named, kernels and smoke ok) and ``info``;
+    each command's wall time, start-up (import, CUDA context, kernel load)
+    and ms a frame or a tick beside the in-process figure;
+28. ``vaudio_torch.entry.entry()``: its fn on its 1080p example inputs and
+    on a structured frame, pcm f32[2048], finite, equal bit for bit to
+    ``frame_step``.
 
 Each kernel's line gives two times: from CUDA events around a loop of calls
 (``ms``; for a small kernel the host's launch overhead sets it) and the
@@ -2353,6 +2379,17 @@ HOSTPOD_DEVICE = "cuda:0"        # each child process's device
 NOT_SCALING = "one card, device repeated: not a scaling figure"
 
 
+def repo_env(**extra) -> dict:
+    """The environment of a child process: this one's, with the repository
+    first on PYTHONPATH (the children load the kernels phase_build built,
+    from the same build/ directory)."""
+    env = dict(os.environ, **extra)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(Path(__file__).resolve().parent)]
+        + [p for p in env.get("PYTHONPATH", "").split(os.pathsep) if p])
+    return env
+
+
 def mesh_devices(k: int) -> list:
     """k devices for a mesh: distinct cards where the machine has k, else
     its cards repeated."""
@@ -2652,10 +2689,7 @@ def phase_hostpod(frames: np.ndarray, smi: str) -> dict:
     S, T = POD_S, HOSTPOD_T
     clips = np.stack([frames[POD_T * k:POD_T * k + T] for k in range(S)])
     root = Path(__file__).resolve().parent
-    env = dict(os.environ)
-    env["PYTHONPATH"] = os.pathsep.join(
-        [str(root)] + [p for p in env.get("PYTHONPATH", "").split(os.pathsep)
-                       if p])
+    env = repo_env()
     counts = {}
     with tempfile.TemporaryDirectory() as tmp:
         np.save(f"{tmp}/clips.npy", clips)
@@ -2758,6 +2792,471 @@ def phase_hostpod(frames: np.ndarray, smi: str) -> dict:
     return counts
 
 
+# ---------------------------------------------------------------------------
+# The command line, in processes of its own
+# ---------------------------------------------------------------------------
+
+CLI_T = 64                       # frames of the CLI's sonify and stream runs
+CLI_TRACE_T = 16                 # frames of the traced stream
+CLI_POD_S = 4                    # slots of the CLI's pod
+CLI_POD_T = 16                   # frames a slot of the CLI's pod
+CLI_SERVE_T = 16                 # frames pushed into the served pod
+CLI_HOSTPOD_T = 8                # frames a slot of the two-process CLI pod
+CLI_FLAGS = ["--sample-rate", "48000", "--channels", "2", "--pallas"]
+# A CLI process that counts its kernel launches: ``python -c CLI_PRELUDE
+# <info.json> <command> ...`` times the start-up (the imports, the CUDA
+# context, loading the kernel library phase_build built), runs the package's
+# __main__ as ``python -m vaudio_torch <command> ...`` does (runpy), and at
+# exit writes the start-up, the command's seconds and the launch counts to
+# info.json.
+CLI_PRELUDE = """
+import atexit, json, runpy, sys, time
+t0 = time.perf_counter()
+import torch
+import vaudio_torch.cli
+from chip_smoke import read_counts
+t1 = time.perf_counter()
+torch.zeros(1, device="cuda")
+torch.cuda.synchronize()
+t2 = time.perf_counter()
+from vaudio_torch.ops import _build
+_build.lib()
+t3 = time.perf_counter()
+info = {"import_s": t1 - t0, "cuda_s": t2 - t1, "kernels_s": t3 - t2}
+path = sys.argv.pop(1)
+
+
+def dump():
+    info["command_s"] = time.perf_counter() - t3
+    info["launches"] = read_counts()
+    with open(path, "w") as f:
+        json.dump(info, f)
+
+
+atexit.register(dump)
+sys.argv[0] = "vaudio_torch"
+runpy.run_module("vaudio_torch", run_name="__main__", alter_sys=True)
+"""
+
+
+def start_cli(args: list, info: str = None, **kw) -> subprocess.Popen:
+    """``python -m vaudio_torch <args>`` from the repository's root, on the
+    card (no VAUDIO_PLATFORM); with ``info``, through CLI_PRELUDE."""
+    env = repo_env()
+    env.pop("VAUDIO_PLATFORM", None)
+    cmd = ([sys.executable, "-c", CLI_PRELUDE, info, *args] if info
+           else [sys.executable, "-m", "vaudio_torch", *args])
+    kw.setdefault("stdout", subprocess.PIPE)
+    kw.setdefault("stderr", subprocess.PIPE)
+    return subprocess.Popen(cmd, env=env, cwd=Path(__file__).resolve().parent,
+                            **kw)
+
+
+def finish_cli(proc: subprocess.Popen, what: str, info: str = None):
+    """Wait for a CLI process (within the watchdog's remaining time): its
+    stdout bytes, its stderr text and its info (CLI_PRELUDE's), failing the
+    run unless it exits 0."""
+    limit = max(30.0, _deadline - time.monotonic() - 30)
+    try:
+        out, err = proc.communicate(timeout=limit)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        fail(f"cli {what}: still running after {limit:.0f} s")
+    err = err.decode(errors="replace") if isinstance(err, bytes) else err
+    if proc.returncode != 0:
+        fail(f"cli {what}: exit {proc.returncode}:\n{(err or '')[-3000:]}")
+    return out, err, (json.loads(Path(info).read_text()) if info else None)
+
+
+def run_cli(args: list, what: str, info: str = None):
+    """start_cli + finish_cli: (stdout, stderr, info, wall s)."""
+    t0 = time.perf_counter()
+    out, err, inf = finish_cli(start_cli(args, info), what, info)
+    return out, err, inf, time.perf_counter() - t0
+
+
+def cli_launches(what: str, got: dict, want: dict) -> dict:
+    """Fail unless a CLI process launched exactly ``want`` (0 elsewhere)."""
+    full = {k: want.get(k, 0) for k in got}
+    if got != full:
+        fail(f"cli {what}: launches {got}, expected {full}")
+    return got
+
+
+def startup(info: dict) -> str:
+    total = info["import_s"] + info["cuda_s"] + info["kernels_s"]
+    return (f"start-up {total:.2f}"
+            f" s (import {info['import_s']:.2f}, CUDA context "
+            f"{info['cuda_s']:.2f}, kernel load {info['kernels_s']:.3f})")
+
+
+def stream_metrics(err: str, what: str) -> dict:
+    """The metrics dict of a ``stream`` command's last stderr line."""
+    import ast
+    m = re.search(r"metrics: (\{.*\})", err)
+    if m is None:
+        fail(f"cli {what}: no metrics line on stderr:\n{err[-2000:]}")
+    return ast.literal_eval(m.group(1))
+
+
+def wav_bytes_equal(a: str, b: str) -> bool:
+    return Path(a).read_bytes() == Path(b).read_bytes()
+
+
+def phase_cli(frames: np.ndarray, smi: str) -> dict:
+    """The command line (``python -m vaudio_torch``) on the card at 1080p
+    and 48 kHz, each command a process of its own with the repository on
+    PYTHONPATH, using the kernels phase_build built: sonify (stereo, and
+    OrthoModes mono), stream in pipe mode per frame and in chunks of 8, a
+    traced stream, the pod with 4 file slots, the served pod fed by the push
+    command and read by the pull command, two pod --coordinator processes
+    on Gloo, doctor --json and info.  Each result against the port in this
+    process on the same frames (bit for bit where the issue asks it), each
+    command's launches, wall time, start-up and ms/frame beside the
+    in-process figure.  Returns the counts by path."""
+    from vaudio_torch import cli
+    from vaudio_torch.api import Auralizer
+    from vaudio_torch.client import PodClient
+    from vaudio_torch.io import write_wav
+    from vaudio_torch.runtime import MultiStreamAuralizer
+    from vaudio_torch.runtime.engine import AuralizerEngine
+    from vaudio_torch.utils.profiling import trace_kernel_counts
+    t_phase = time.perf_counter()
+    H, W = frames.shape[1:3]
+    size = f"{H}x{W}"
+    card = torch.cuda.get_device_name(0)
+    counts = {}
+
+    def config(argv):
+        return cli._build_config(cli.build_parser().parse_args(argv))
+
+    with tempfile.TemporaryDirectory() as tmp:
+        clip = np.ascontiguousarray(frames[:CLI_T])
+        np.save(f"{tmp}/clip.npy", clip)
+        clip.tofile(f"{tmp}/clip.rgb")
+
+        # -- sonify: stereo through K1, K2 and K4; OrthoModes mono ------------
+        for path, model, flags in (
+                ("cli_sonify", "auralizer", CLI_FLAGS),
+                ("cli_sonify_ortho", "orthomodes",
+                 ["--sample-rate", "48000", "--model", "orthomodes"])):
+            argv = ["sonify", f"{tmp}/clip.npy", "-o", f"{tmp}/{path}.wav",
+                    *flags]
+            _, _, info, wall = run_cli(argv, path, f"{tmp}/{path}.json")
+            cfg, params = config(argv)
+            aur = Auralizer(config=cfg, params=params, model=model,
+                            device="cuda")
+            aur.sonify(clip[:8])                         # warm-up
+            t0 = time.perf_counter()
+            aur.sonify_to_wav(clip, f"{tmp}/{path}_ref.wav")
+            inproc = 1e3 * (time.perf_counter() - t0) / CLI_T
+            if not wav_bytes_equal(f"{tmp}/{path}.wav",
+                                   f"{tmp}/{path}_ref.wav"):
+                fail(f"cli {path}: the WAV differs from the in-process "
+                     f"sonify_to_wav's")
+            want = {"mip_pool_u8": 1, "agc_overlap_add": 1}
+            if model == "auralizer":
+                want["hann_peak_weighted_sum"] = 1
+            counts[path] = cli_launches(path, info["launches"], want)
+            say(f"cli: python -m vaudio_torch sonify {' '.join(flags)} "
+                f"({CLI_T} u8 frames {size} .npy, {aur.config.channels} "
+                f"channel(s)): WAV equal to the in-process sonify_to_wav's "
+                f"bit for bit; launches {info['launches']}; wall "
+                f"{wall:.2f} s, {startup(info)}, command "
+                f"{1e3 * info['command_s'] / CLI_T:.3f} ms/frame (.npy read, "
+                f"first dispatch and WAV write included), in process "
+                f"{inproc:.3f} ms/frame ({smi})")
+
+        # -- stream in pipe mode, per frame and in chunks of 8 ----------------
+        for chunk, path in ((1, "cli_stream"),
+                            (LIVE_CHUNK, "cli_stream_chunk")):
+            log = f"{tmp}/{path}.jsonl"
+            argv = ["stream", "--size", size, "--input", f"{tmp}/clip.rgb",
+                    *CLI_FLAGS, "--chunk-frames", str(chunk),
+                    "--metrics-log", log]
+            out, err, info, wall = run_cli(argv, path, f"{tmp}/{path}.json")
+            got = np.frombuffer(out, "<f4")
+            m = stream_metrics(err, path)
+            if m["frames_processed"] != CLI_T or m["dropped_frames"]:
+                fail(f"cli {path}: {m}")
+            pattern = [json.loads(line)["frames"]
+                       for line in Path(log).read_text().splitlines()]
+            cfg, params = config(argv)
+            if sum(pattern) != CLI_T or (chunk == 1 and set(pattern) != {1}):
+                fail(f"cli {path}: dispatch pattern {pattern}")
+            ref = offline_by_pattern(clip, pattern, cfg)
+            if not np.array_equal(got, ref):
+                fail(f"cli {path}: stdout's PCM ({got.size} samples) differs "
+                     f"from the in-process run with the same dispatches")
+            n = len(pattern)
+            counts[path] = cli_launches(path, info["launches"], {
+                "mip_pool_u8": n, "hann_peak_weighted_sum": n,
+                "agc_overlap_add": n})
+            live = Auralizer(source=clip, config=dataclasses.replace(
+                cfg, ring_buffer_frames=CLI_T + 8), params=params,
+                device="cuda", chunk_frames=chunk)
+            t0 = time.perf_counter()
+            live.run_until_exhausted(timeout=300)
+            inproc = 1e3 * (time.perf_counter() - t0) / CLI_T
+            say(f"cli: python -m vaudio_torch stream --chunk-frames {chunk} "
+                f"({CLI_T} frames {size} rgb24 from a file, stereo 48 kHz, "
+                f"--pallas): stdout's f32 PCM equal to the in-process run "
+                f"with the stream's {n} dispatches bit for bit; launches "
+                f"{info['launches']}; latency p50 {m['latency_p50_ms']:.3f} "
+                f"ms p99 {m['latency_p99_ms']:.3f} ms; wall {wall:.2f} s, "
+                f"{startup(info)}, command "
+                f"{1e3 * info['command_s'] / CLI_T:.3f} ms/frame, in "
+                f"process {inproc:.3f} ms/frame ({smi})")
+
+        # -- a traced stream: the trace shows the kernels ---------------------
+        clip[:CLI_TRACE_T].tofile(f"{tmp}/trace.rgb")
+        argv = ["stream", "--size", size, "--input", f"{tmp}/trace.rgb",
+                *CLI_FLAGS, "--trace", f"{tmp}/trace"]
+        out, err, _, wall = run_cli(argv, "stream --trace")
+        traced = trace_kernel_counts(f"{tmp}/trace", (
+            "mip_pool_u8", "hann_peak", "agc_overlap_add", "vision_stats"))
+        want = {"mip_pool_u8": CLI_TRACE_T, "hann_peak": CLI_TRACE_T,
+                "agc_overlap_add": CLI_TRACE_T, "vision_stats": 0}
+        if traced != want:
+            fail(f"cli stream --trace: kernels in the trace {traced}, "
+                 f"expected {want}")
+        cfg, _ = config(argv)
+        if not np.array_equal(np.frombuffer(out, "<f4"), offline_by_pattern(
+                clip[:CLI_TRACE_T], [1] * CLI_TRACE_T, cfg)):
+            fail("cli stream --trace: stdout's PCM differs from the "
+                 "in-process run")
+        trace_mb = sum(f.stat().st_size for f in Path(f"{tmp}/trace")
+                       .glob("*")) / 1e6
+        say(f"cli: python -m vaudio_torch stream --trace ({CLI_TRACE_T} "
+            f"frames {size}): the torch.profiler trace ({trace_mb:.1f} MB) "
+            f"shows K1 mip_pool_u8, K2' hann_peak and K4 agc_overlap_add "
+            f"{CLI_TRACE_T} times each, K3 0; PCM equal to the in-process "
+            f"run; wall {wall:.2f} s ({smi})")
+
+        # -- the pod: 4 raw rgb24 file slots, per frame -----------------------
+        argv = ["pod", "--size", size, *CLI_FLAGS, "-o", f"{tmp}/pod"]
+        pclips = []
+        for k in range(CLI_POD_S):
+            c = np.ascontiguousarray(frames[CLI_POD_T * k:CLI_POD_T * (k + 1)])
+            c.tofile(f"{tmp}/slot{k}.rgb")
+            argv += ["--input", f"{tmp}/slot{k}.rgb"]
+            pclips.append(c)
+        _, err, info, wall = run_cli(argv, "pod", f"{tmp}/cli_pod.json")
+        ticks = int(re.search(r"in (\d+) dispatches", err).group(1))
+        cfg, params = config(argv)
+        pod = MultiStreamAuralizer(
+            cfg, n_streams=CLI_POD_S, engine=AuralizerEngine(cfg),
+            params=[dataclasses.replace(params) for _ in range(CLI_POD_S)])
+        inproc = 1e3 * run_pod(pod, [iter(c) for c in pclips],
+                               "in-process pod") / CLI_POD_T
+        for i in range(CLI_POD_S):
+            write_wav(f"{tmp}/pod_ref{i}.wav",
+                      pod.pull(i, CLI_POD_T * cfg.hop_size * 2).reshape(-1, 2),
+                      cfg.sample_rate, channels=2)
+            if not wav_bytes_equal(f"{tmp}/pod/slot{i}.wav",
+                                   f"{tmp}/pod_ref{i}.wav"):
+                fail(f"cli pod: slot{i}.wav differs from the in-process "
+                     f"pod's slot")
+        pod.stop()
+        if ticks != CLI_POD_T:
+            fail(f"cli pod: {ticks} dispatches for {CLI_POD_T} frames a slot")
+        counts["cli_pod"] = cli_launches("pod", info["launches"], {
+            "mip_pool_u8": ticks, "hann_peak_weighted_sum": ticks,
+            "agc_overlap_add": ticks})
+        say(f"cli: python -m vaudio_torch pod, {CLI_POD_S} raw rgb24 file "
+            f"slots of {CLI_POD_T} frames {size}, stereo 48 kHz, per frame: "
+            f"every slotN.wav equal to the in-process pod's bit for bit; "
+            f"launches {info['launches']} in {ticks} ticks; wall "
+            f"{wall:.2f} s, {startup(info)}, command "
+            f"{1e3 * info['command_s'] / CLI_POD_T:.3f} ms a tick, in "
+            f"process {inproc:.3f} ms a tick ({smi})")
+
+        # -- the served pod: push and pull commands ---------------------------
+        serve_clip = np.ascontiguousarray(frames[:CLI_SERVE_T])
+        np.save(f"{tmp}/push.npy", serve_clip)
+        t0 = time.perf_counter()
+        server = start_cli(["pod", "--size", size, *CLI_FLAGS, "--input",
+                            "push", "--input", "push:dark", "--serve",
+                            "127.0.0.1:0", "-o", f"{tmp}/served"],
+                           f"{tmp}/cli_serve.json", stdout=subprocess.DEVNULL,
+                           stderr=subprocess.PIPE, text=True)
+        lines = []
+        for line in server.stderr:           # until the panel's address
+            lines.append(line)
+            url = re.search(r"live panel at (http://\S+)", line)
+            if url or time.perf_counter() - t0 > 300:
+                break
+        if not url:
+            server.kill()
+            fail(f"cli pod --serve: no panel address:\n{''.join(lines)}")
+        url = url.group(1).rstrip("/")
+        drain = threading.Thread(target=lambda: lines.extend(server.stderr),
+                                 daemon=True)
+        drain.start()
+        pull = start_cli(["pull", "--url", url, "--slot", "0", "--seconds",
+                          "0.2", "-o", f"{tmp}/pulled.wav"])
+        _, push_err, _ = finish_cli(start_cli(
+            ["push", "--url", url, "--slot", "0", "--input",
+             f"{tmp}/push.npy", "--maxsize", str(CLI_SERVE_T)]), "push")
+        if f"push: {CLI_SERVE_T} frames -> {url} slot 0" not in push_err:
+            fail(f"cli push: {push_err[-2000:]}")
+        finish_cli(pull, "pull")
+        client = PodClient(url)
+        m = via("GET /metrics", client.metrics)
+        door = m["slots"][0]["push"]
+        if any(s["failed"] for s in m["slots"]) or \
+                door["pushed"] != CLI_SERVE_T or door["dropped"]:
+            fail(f"cli pod --serve: a slot failed, or slot 0's door took "
+                 f"other than {CLI_SERVE_T} frames: {m['slots']}")
+        via("close slot 1's push door", client.slot(1).close_push)
+        server.wait(timeout=max(30.0, _deadline - time.monotonic() - 30))
+        drain.join(timeout=30)
+        if server.returncode != 0:
+            fail(f"cli pod --serve: exit {server.returncode}:\n"
+                 f"{''.join(lines)[-3000:]}")
+        wall = time.perf_counter() - t0
+        info = json.loads(Path(f"{tmp}/cli_serve.json").read_text())
+        err = "".join(lines)
+        ticks = int(re.search(r"in (\d+) dispatches", err).group(1))
+        pulled, _ = read_wav_checked(f"{tmp}/pulled.wav", "pull")
+        slot0, _ = read_wav_checked(f"{tmp}/served/slot0.wav", "slot0.wav")
+        if len(pulled) != round(0.2 * 48000) or not len(slot0):
+            fail(f"cli pod --serve: pulled {len(pulled)} samples, slot0.wav "
+                 f"{len(slot0)}")
+        counts["cli_serve"] = cli_launches("pod --serve", info["launches"], {
+            "mip_pool_u8": ticks, "hann_peak_weighted_sum": ticks,
+            "agc_overlap_add": ticks})
+        say(f"cli: python -m vaudio_torch pod --serve with a push and a "
+            f"push:dark slot, fed by python -m vaudio_torch push "
+            f"({CLI_SERVE_T} "
+            f".npy frames {size}) and read by pull (0.2 s of slot 0): exit "
+            f"0, no slot failed, the WAVs finite and non-empty; launches "
+            f"{info['launches']} in {ticks} ticks (a held push slot ticks "
+            f"at device speed); wall {wall:.2f} s, {startup(info)} ({smi})")
+
+        # -- two pod --coordinator processes on Gloo --------------------------
+        gclips = [np.ascontiguousarray(
+            frames[CLI_POD_T * g:CLI_POD_T * g + CLI_HOSTPOD_T])
+            for g in range(CLI_POD_S)]
+        for g, c in enumerate(gclips):
+            np.save(f"{tmp}/g{g}.npy", c)
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            port = sock.getsockname()[1]
+        t0 = time.perf_counter()
+        procs = [start_cli(
+            ["pod", "--size", size, *CLI_FLAGS, "--coordinator",
+             f"127.0.0.1:{port}", "--num-processes", "2", "--process-id",
+             str(pid), "-o", f"{tmp}/host{pid}",
+             "--input", f"{tmp}/g{2 * pid}.npy",
+             "--input", f"{tmp}/g{2 * pid + 1}.npy"],
+            f"{tmp}/cli_host{pid}.json") for pid in (0, 1)]
+        done = [finish_cli(p, f"pod --coordinator process {pid}",
+                           f"{tmp}/cli_host{pid}.json")
+                for pid, p in enumerate(procs)]
+        infos = [d[2] for d in done]
+        ticks = [int(re.search(r"in (\d+) dispatches", d[1]).group(1))
+                 for d in done]
+        wall = time.perf_counter() - t0
+        cfg, params = config(["pod", "--size", size, *CLI_FLAGS])
+        pod = MultiStreamAuralizer(
+            cfg, n_streams=CLI_POD_S, engine=AuralizerEngine(cfg),
+            params=[dataclasses.replace(params) for _ in range(CLI_POD_S)])
+        run_pod(pod, [iter(c) for c in gclips], "in-process pod")
+        for g in range(CLI_POD_S):
+            write_wav(f"{tmp}/host_ref{g}.wav",
+                      pod.pull(g, CLI_HOSTPOD_T * cfg.hop_size * 2)
+                      .reshape(-1, 2), cfg.sample_rate, channels=2)
+            if not wav_bytes_equal(f"{tmp}/host{g // 2}/slot{g % 2}.wav",
+                                   f"{tmp}/host_ref{g}.wav"):
+                fail(f"cli pod --coordinator: global slot {g} differs from "
+                     f"the single-process pod's")
+        pod.stop()
+        counts["cli_hostpod"] = {k: sum(i["launches"][k] for i in infos)
+                                 for k in infos[0]["launches"]}
+        for pid, (i, n) in enumerate(zip(infos, ticks)):
+            # The lockstep pod's last tick is the all-dark one on which its
+            # sources end (ROADMAP queue 3): it launches like any other.
+            if n != CLI_HOSTPOD_T + 1:
+                fail(f"cli pod --coordinator process {pid}: {n} ticks")
+            cli_launches(f"pod --coordinator process {pid}", i["launches"],
+                         {"mip_pool_u8": n, "hann_peak_weighted_sum": n,
+                          "agc_overlap_add": n})
+        say(f"cli: two python -m vaudio_torch pod --coordinator processes "
+            f"on {card} (Gloo on 127.0.0.1), 2 slots of {CLI_HOSTPOD_T} "
+            f".npy frames {size} each: every global slot's WAV equal to the "
+            f"single-process pod's bit for bit; launches "
+            f"{[i['launches'] for i in infos]}; wall {wall:.2f} s for both, "
+            f"{startup(infos[0])} / {startup(infos[1])} ({smi})")
+
+        # -- doctor --json and info, both at once -----------------------------
+        t0 = time.perf_counter()
+        doctor = start_cli(["doctor", "--json"])
+        info_p = start_cli(["info"])
+        out, _, _ = finish_cli(doctor, "doctor --json")
+        checks = {c["name"]: c for c in json.loads(out)}
+        bad = [c for c in checks.values() if c["status"] == "fail"]
+        if bad or card not in checks["backend"]["detail"] or \
+                checks["kernels"]["status"] != "ok" or \
+                checks["smoke"]["status"] != "ok" or \
+                not checks["smoke"]["detail"].endswith("(cuda)"):
+            fail(f"cli doctor --json: {list(checks.values())}")
+        out, _, _ = finish_cli(info_p, "info")
+        info = json.loads(out)
+        if info["device"] != "cuda" or not any(card in d for d in
+                                               info["devices"]):
+            fail(f"cli info: {info['device']} {info['devices']}")
+        say(f"cli: python -m vaudio_torch doctor --json: no fail "
+            f"({', '.join(f'{k} {c['status']}' for k, c in checks.items())}"
+            f"), backend {checks['backend']['detail']}; info names "
+            f"{info['devices']} (torch {info['torch']}, CUDA "
+            f"{info['cuda']}); both {time.perf_counter() - t0:.2f} s "
+            f"({smi})")
+    say(f"cli: the phase {time.perf_counter() - t_phase:.1f} s ({smi})")
+    return counts
+
+
+def read_wav_checked(path: str, what: str):
+    from vaudio_torch.io import read_wav
+    audio, sr = read_wav(path)
+    if not np.isfinite(audio).all():
+        fail(f"cli {what}: {path} is not finite")
+    return audio, sr
+
+
+def phase_entry(frames: np.ndarray, smi: str) -> None:
+    """vaudio_torch.entry.entry() on the card: its fn on its 1080p example
+    inputs and on a structured frame gives pcm f32[2048], finite, equal bit
+    for bit to frame_step through make_step on the same carry; its ms a
+    call from CUDA events."""
+    from vaudio_torch.config import AuralizerConfig
+    from vaudio_torch.entry import entry
+    from vaudio_torch.runtime import step
+    fn, (carry, frame, params) = entry()
+    if frame.device.type != "cuda" or carry.phases.device.type != "cuda":
+        fail(f"entry(): example inputs on {frame.device}")
+    ref_step = step.make_step(AuralizerConfig(), device="cuda")
+    ref_carry = carry
+    for k, f in enumerate((frame, torch.as_tensor(frames[0], device="cuda"))):
+        carry, out = fn(carry, f, params)
+        ref_carry, ref = ref_step(ref_carry, f, params)
+        pcm = out["pcm"]
+        if pcm.dtype != torch.float32 or pcm.shape != (2048,) or \
+                not bool(torch.isfinite(pcm).all()):
+            fail(f"entry(): frame {k}: pcm {pcm.dtype} {tuple(pcm.shape)}")
+        if not bits_equal(pcm, ref["pcm"]) or \
+                not torch.equal(carry.hues, ref_carry.hues):
+            fail(f"entry(): frame {k}: differs from frame_step")
+    peak = float(pcm.abs().max())
+    ms = cuda_ms(lambda: fn(carry, f, params))
+    say(f"entry: vaudio_torch.entry.entry() on {torch.cuda.get_device_name(0)}"
+        f": fn(carry, frame, params) on its 1080p example inputs and a "
+        f"structured 1080p u8 frame gives pcm f32[2048], finite (peak "
+        f"{peak:.4f}), equal bit for bit to frame_step; {ms:.3f} ms a call "
+        f"(CUDA events, host launch gaps included) ({smi})")
+
+
 def main() -> None:
     global _deadline
     if not torch.cuda.is_available():
@@ -2811,6 +3310,8 @@ def main() -> None:
     counts.update(mesh_counts)
     kernels += mesh_kernels
     counts.update(phase_hostpod(frames, smi))
+    counts.update(phase_cli(frames, smi))
+    phase_entry(frames, smi)
     for k in kernels:
         base = k.pop("counter")
         k["launches"] = counts[k["path"]][base]

@@ -1015,3 +1015,36 @@ def test_mesh_step_on_the_card_equals_one_device(dev, shape):
         np.testing.assert_allclose(got, ref, rtol=0, atol=3e-4)
     np.testing.assert_array_equal(carry_m.gather().hues.numpy(),
                                   carry_1.hues.cpu().numpy())
+
+
+def test_cli_stream_trace_launches_the_kernels(dev, tmp_path):
+    """``python -m vaudio_torch stream --pallas --trace DIR`` on a raw rgb24
+    u8 file (8 frames of 192x256) runs on the card by default, and its
+    torch.profiler trace shows K1 (the u8 mip pool), K2' and K4 launched
+    once a frame; the PCM on stdout is finite, one hop a frame."""
+    import os
+    import subprocess
+    import sys
+
+    from vaudio_torch.utils.profiling import trace_kernel_counts
+    frames = structured_frames(90, 8, 192, 256)
+    raw = tmp_path / "clip.rgb"
+    frames.tofile(raw)
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ)
+    env.pop("VAUDIO_PLATFORM", None)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [repo] + [p for p in env.get("PYTHONPATH", "").split(os.pathsep)
+                  if p])
+    r = subprocess.run(
+        [sys.executable, "-m", "vaudio_torch", "stream", "--size",
+         "192x256", "--input", str(raw), "--pallas", "--trace",
+         str(tmp_path / "trace")],
+        capture_output=True, env=env, cwd=repo, timeout=600)
+    assert r.returncode == 0, r.stderr.decode()[-3000:]
+    pcm = np.frombuffer(r.stdout, "<f4")
+    assert pcm.shape == (8 * 2048,) and np.isfinite(pcm).all()
+    counts = trace_kernel_counts(tmp_path / "trace", (
+        "mip_pool_u8", "hann_peak", "agc_overlap_add", "vision_stats"))
+    assert counts == {"mip_pool_u8": 8, "hann_peak": 8,
+                      "agc_overlap_add": 8, "vision_stats": 0}, counts

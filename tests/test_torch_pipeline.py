@@ -239,9 +239,10 @@ def test_import_and_slice_leave_jax_out(tmp_path):
     PodServer and driven by vaudio_torch.client, and the serving
     path: frames pushed over HTTP into a served PushSource stream (the C++
     ring), the control channel, the live debug surface, the debug views,
-    a checkpoint over HTTP and the native frame reader, and the multi-device
+    a checkpoint over HTTP and the native frame reader, the multi-device
     paths of vaudio_torch.parallel (dryrun_multichip over a repeated CPU
-    device); with TF32 off."""
+    device), and the command line, the doctor, a profiler trace of
+    entry()'s step and the examples' modules; with TF32 off."""
     code = textwrap.dedent("""
         import sys
         import time
@@ -351,6 +352,23 @@ def test_import_and_slice_leave_jax_out(tmp_path):
         from vaudio_torch.parallel.dryrun import dryrun_multichip
         with contextlib.redirect_stdout(io.StringIO()):
             assert len(dryrun_multichip(2, devices=["cpu"])) == 4
+        import os
+        import vaudio_torch.examples.baseline_configs
+        import vaudio_torch.examples.serving_pod
+        import vaudio_torch.examples.walkthrough
+        from vaudio_torch import cli
+        from vaudio_torch.entry import entry
+        from vaudio_torch.utils import doctor, profiling
+        os.environ["VAUDIO_PLATFORM"] = "cpu"
+        with contextlib.redirect_stdout(io.StringIO()):
+            assert cli.main(["synthetic", "--frames", "2", "--width", "32",
+                             "--height", "32", "-o", tmp + "/s.wav"]) == 0
+            assert cli.main(["info"]) == 0
+        assert doctor.check_versions()["status"] == "ok"
+        fn, (carry, frame, params) = entry(device="cpu")
+        with profiling.trace_context(tmp + "/trace", device="cpu"):
+            carry, out = fn(carry, frame, params)
+        assert out["pcm"].shape == (2048,)
         print(sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "vaudio")))
     """)

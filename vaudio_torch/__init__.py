@@ -32,6 +32,8 @@ import torch
 
 from vaudio_torch.config import AuralizerConfig, LiveParams
 
+__version__ = "0.1.0"
+
 # TF32 keeps ~3 decimal digits: an f32 matmul or convolution in TF32 would
 # break every f32 band the port is held to (the GPU form of the TPU's
 # bf16-DEFAULT trap, docs/PARITY.md "TPU matmul precision").
@@ -52,4 +54,4 @@ def device(spec=None) -> torch.device:
     return torch.device("cuda")
 
 
-__all__ = ["AuralizerConfig", "LiveParams", "device"]
+__all__ = ["AuralizerConfig", "LiveParams", "__version__", "device"]

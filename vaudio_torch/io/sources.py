@@ -1,16 +1,58 @@
-"""Frame sources (a copy of the parts of :mod:`vaudio.io.sources` the port
-uses).  A source is any object with ``.frames()`` yielding (H, W, 3) RGB
-arrays, u8 or f32 in [0, 1], or dicts ``{"y", "u", "v"}`` of planar u8
-YUV 4:2:0."""
+"""Frame sources (a copy of :mod:`vaudio.io.sources`).  A source is any
+object with ``.frames()`` yielding (H, W, 3) RGB arrays, u8 or f32 in
+[0, 1], or dicts ``{"y", "u", "v"}`` of planar u8 YUV 4:2:0."""
 
 from __future__ import annotations
 
 import ctypes
 import os
+import shutil
+import subprocess
 from collections import deque
 from typing import Iterator, Optional, Tuple
 
 import numpy as np
+
+
+def hsb_to_rgb(h: float, s: float, b: float) -> np.ndarray:
+    """HSB -> RGB, the UIColor(hue:saturation:brightness:) model used by the
+    tutorial's synthetic frames (Tutorial/TutorialStart.swift:109-124)."""
+    h = (h % 1.0) * 6.0
+    i = int(h) % 6
+    f = h - int(h)
+    p = b * (1.0 - s)
+    q = b * (1.0 - s * f)
+    t = b * (1.0 - s * (1.0 - f))
+    rgb = [(b, t, p), (q, b, p), (p, b, t), (p, q, b), (t, p, b),
+           (b, p, q)][i]
+    return np.asarray(rgb, dtype=np.float32)
+
+
+def solid_color_frames(rgb, width: int = 640, height: int = 480,
+                       num_frames: int = 1) -> np.ndarray:
+    """Constant-colour frames, f32[num_frames, height, width, 3] — the
+    createColorBuffer equivalent (Utilities/CreateColorBuffer.swift:16-65)."""
+    rgb = np.asarray(rgb, dtype=np.float32).reshape(3)
+    out = np.empty((num_frames, height, width, 3), np.float32)
+    out[...] = rgb
+    return out
+
+
+def hsb_frames(hue: float, saturation: float, brightness: float,
+               width: int = 640, height: int = 480,
+               num_frames: int = 1) -> np.ndarray:
+    """Tutorial-style synthetic frames parameterized in HSB
+    (Tutorial/TutorialStart.swift:46,109-124: 640x480 solid colour at the
+    slider-selected hue, saturation and brightness)."""
+    return solid_color_frames(hsb_to_rgb(hue, saturation, brightness),
+                              width, height, num_frames)
+
+
+def bgra_to_rgb(frame_bgra_u8: np.ndarray) -> np.ndarray:
+    """Camera-format conversion: BGRA u8 -> RGB f32 in [0, 1] (the
+    reference forces kCVPixelFormatType_32BGRA, VisionEngine.swift:62-64)."""
+    f = frame_bgra_u8.astype(np.float32) / 255.0
+    return f[..., [2, 1, 0]]
 
 
 def yuv420_to_rgb(y: np.ndarray, u: np.ndarray, v: np.ndarray,
@@ -377,3 +419,190 @@ class Yuv420FileSource(RawVideoSource):
         super().__init__(path, width, height, pix_fmt=fmt, fps=fps,
                          studio_swing=studio_swing, raw=raw)
         self.fmt = fmt
+
+
+class Cv2CameraSource:
+    """Live webcam capture through OpenCV ``VideoCapture`` (most webcams
+    deliver MJPEG/H.264, which cv2's codecs decode; :class:`CameraSource`
+    reads a V4L2 node already set to a raw pixel format).  ``device`` is a
+    capture index (0 = the default camera) or any string cv2 accepts.
+
+    The capture opens once at construction; ``frames()`` drains it until
+    the device stops or ``max_frames`` is reached, and a second
+    ``frames()`` continues the same live stream.  Yields u8 RGB."""
+
+    def __init__(self, device=0, width: Optional[int] = None,
+                 height: Optional[int] = None, fps: Optional[float] = None,
+                 max_frames: Optional[int] = None):
+        try:
+            import cv2
+        except ImportError:
+            raise RuntimeError(
+                "Cv2CameraSource requires the opencv-python package; "
+                "for raw V4L2 nodes use CameraSource instead")
+        self._cv2 = cv2
+        self._cap = cv2.VideoCapture(device)
+        if not self._cap.isOpened():
+            self._cap.release()
+            raise RuntimeError(f"cv2 could not open capture device "
+                               f"{device!r}")
+        # Requested properties are best-effort (a camera may ignore them);
+        # the shape is read back below.
+        if width is not None:
+            self._cap.set(cv2.CAP_PROP_FRAME_WIDTH, width)
+        if height is not None:
+            self._cap.set(cv2.CAP_PROP_FRAME_HEIGHT, height)
+        if fps is not None:
+            self._cap.set(cv2.CAP_PROP_FPS, fps)
+        self._w = int(self._cap.get(cv2.CAP_PROP_FRAME_WIDTH))
+        self._h = int(self._cap.get(cv2.CAP_PROP_FRAME_HEIGHT))
+        self.fps = float(self._cap.get(cv2.CAP_PROP_FPS)) or (fps or 30.0)
+        self.max_frames = max_frames
+        self._delivered = 0
+
+    @property
+    def shape(self) -> Tuple[int, int]:
+        return self._h, self._w
+
+    def frames(self) -> Iterator[np.ndarray]:
+        if self._cap is None:
+            raise RuntimeError("capture is closed")
+        while self.max_frames is None or self._delivered < self.max_frames:
+            ok, bgr = self._cap.read()
+            if not ok:
+                break
+            self._delivered += 1
+            yield np.ascontiguousarray(bgr[..., ::-1])   # BGR -> RGB
+
+    def close(self) -> None:
+        if self._cap is not None:
+            self._cap.release()
+            self._cap = None
+
+    def __enter__(self) -> "Cv2CameraSource":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
+
+
+# File extensions the CLI routes to VideoFileSource (anything else on
+# --input is raw frames or a device node).
+VIDEO_FILE_EXTENSIONS = (".mp4", ".m4v", ".mov", ".avi", ".mkv", ".webm",
+                         ".mpg", ".mpeg", ".wmv", ".flv")
+
+
+class VideoFileSource:
+    """Decode an encoded video file (mp4/avi/mkv/...) into RGB frames.
+
+    ``backend``: ``"cv2"`` (OpenCV ``VideoCapture``, frames as stored, the
+    container's fps unless ``fps`` is given), ``"ffmpeg"`` (an ``ffmpeg``
+    subprocess decoding rgb24 on a pipe, resampled to ``fps`` with ``-r``
+    when it is given) or ``"auto"`` (cv2 if importable, else ffmpeg, else
+    an error naming both).  Frames are u8 RGB (the device step normalizes
+    them); ``as_float=True`` yields f32 in [0, 1]."""
+
+    def __init__(self, path: str, width: Optional[int] = None,
+                 height: Optional[int] = None, fps: Optional[float] = None,
+                 backend: str = "auto", as_float: bool = False):
+        if backend not in ("auto", "cv2", "ffmpeg"):
+            raise ValueError(f"unknown backend {backend!r}")
+        if not os.path.exists(path):
+            raise FileNotFoundError(path)
+        self.path = path
+        self.as_float = as_float
+        self._cv2 = None
+        if backend in ("auto", "cv2"):
+            try:
+                import cv2
+                self._cv2 = cv2
+            except ImportError:
+                if backend == "cv2":
+                    raise RuntimeError(
+                        "backend='cv2' requires the opencv-python package")
+        if self._cv2 is None and shutil.which("ffmpeg") is None:
+            raise RuntimeError(
+                "VideoFileSource needs a decode backend: neither the cv2 "
+                "module nor an ffmpeg binary on PATH is available. Use "
+                "ArraySource (.npy/.npz tensors), RawVideoSource (raw "
+                "rgb24/yuv), or the synthetic generators instead.")
+        self.backend = "cv2" if self._cv2 is not None else "ffmpeg"
+        self._num_frames: Optional[int] = None
+        probed_fps: Optional[float] = None
+        if self.backend == "cv2":
+            cap = self._cv2.VideoCapture(path)
+            if not cap.isOpened():
+                cap.release()
+                raise RuntimeError(
+                    f"cv2 could not open {path!r} (unsupported container "
+                    "or codec); try backend='ffmpeg' or a raw source")
+            if width is None or height is None:
+                width = int(cap.get(self._cv2.CAP_PROP_FRAME_WIDTH))
+                height = int(cap.get(self._cv2.CAP_PROP_FRAME_HEIGHT))
+            probed_fps = float(cap.get(self._cv2.CAP_PROP_FPS)) or None
+            n = int(cap.get(self._cv2.CAP_PROP_FRAME_COUNT))
+            self._num_frames = n if n > 0 else None
+            cap.release()
+        elif width is None or height is None:
+            width, height = self._probe_dims()
+        self.fps = float(fps if fps is not None else (probed_fps or 30.0))
+        self._resample = fps is not None      # ffmpeg -r only when asked
+        if not width or not height:
+            raise RuntimeError(f"could not determine frame size of {path!r}")
+        self._w, self._h = int(width), int(height)
+
+    def _probe_dims(self) -> Tuple[int, int]:
+        probe = shutil.which("ffprobe")
+        if probe is None:
+            raise RuntimeError("ffprobe not found; pass width/height")
+        out = subprocess.check_output([
+            probe, "-v", "error", "-select_streams", "v:0",
+            "-show_entries", "stream=width,height", "-of", "csv=p=0",
+            self.path]).decode().strip().split(",")
+        return int(out[0]), int(out[1])
+
+    @property
+    def shape(self) -> Tuple[int, int]:
+        return self._h, self._w
+
+    @property
+    def num_frames(self) -> Optional[int]:
+        """Container frame count when the backend can probe it, else None."""
+        return self._num_frames
+
+    def _finish(self, rgb_u8: np.ndarray) -> np.ndarray:
+        if self.as_float:
+            return rgb_u8.astype(np.float32) / 255.0
+        return rgb_u8
+
+    def frames(self) -> Iterator[np.ndarray]:
+        if self.backend == "cv2":
+            cap = self._cv2.VideoCapture(self.path)
+            try:
+                while True:
+                    ok, bgr = cap.read()
+                    if not ok:
+                        break
+                    # cv2 decodes BGR; the pipeline is RGB throughout.
+                    yield self._finish(
+                        np.ascontiguousarray(bgr[..., ::-1]))
+            finally:
+                cap.release()
+            return
+        cmd = ["ffmpeg", "-v", "error", "-i", self.path,
+               "-f", "rawvideo", "-pix_fmt", "rgb24"]
+        if self._resample:
+            cmd += ["-r", str(self.fps)]
+        cmd += ["pipe:1"]
+        frame_bytes = self._w * self._h * 3
+        with subprocess.Popen(cmd, stdout=subprocess.PIPE) as proc:
+            while True:
+                buf = proc.stdout.read(frame_bytes)
+                if len(buf) < frame_bytes:
+                    break
+                yield self._finish(np.frombuffer(buf, np.uint8).reshape(
+                    self._h, self._w, 3))
+
+    def tensor(self) -> np.ndarray:
+        """Decode the whole clip to one [T, H, W, 3] tensor."""
+        return np.stack(list(self.frames()))
