@@ -198,7 +198,18 @@ Phases, one line each; any failure exits non-zero:
     and ms a frame or a tick beside the in-process figure;
 28. ``vaudio_torch.entry.entry()``: its fn on its 1080p example inputs and
     on a structured frame, pcm f32[2048], finite, equal bit for bit to
-    ``frame_step``.
+    ``frame_step``;
+29. the port against the reference's literal f64 math
+    (``vaudio_torch.utils.parity``; the oracle itself runs in two child
+    processes on the host's CPU from before phase 26): the ``parity``
+    command's input (3 f32 frames of 128^2) through the per-frame runner,
+    and 4 structured u8 1080p frames, mono, with ``use_pallas`` and
+    ``use_pallas_vision``, through the per-frame and the chunked runners
+    against one oracle run, hues equal and within the JAX harness's gates,
+    the kernels counted (paths ``oracle_parity``, ``oracle_frame``,
+    ``oracle_chunk``); then ``audit_stages`` at 1080x1920, every stage
+    within its tolerance, each beside the TPU audit's figure
+    (``benchmarks/TPU_PARITY_r05.json``, read as data).
 
 Each kernel's line gives two times: from CUDA events around a loop of calls
 (``ms``; for a small kernel the host's launch overhead sets it) and the
@@ -3257,6 +3268,178 @@ def phase_entry(frames: np.ndarray, smi: str) -> None:
         f"(CUDA events, host launch gaps included) ({smi})")
 
 
+ORACLE_T = 4                     # 1080p frames the oracle phase holds to f64
+PARITY_FRAMES, PARITY_SIZE = 3, 128  # the parity command's default input
+# The literal f64 oracle in a child process, numpy on one host core:
+# ``python -c ORACLE_CHILD <clip.npy> <out.npz>`` runs
+# vaudio_torch.utils.parity.reference_pipeline on the clip (the port's
+# oracle_input of it) and writes its four results and its seconds.  It ends
+# itself when its parent is gone.
+ORACLE_CHILD = """
+import os, sys, threading, time
+import numpy as np
+from vaudio_torch.config import AuralizerConfig
+from vaudio_torch.utils.parity import oracle_input, reference_pipeline
+parent = os.getppid()
+
+
+def orphaned():
+    while os.getppid() == parent:
+        time.sleep(1)
+    os._exit(1)
+
+
+threading.Thread(target=orphaned, daemon=True).start()
+clip, out = sys.argv[1:3]
+t0 = time.perf_counter()
+ref = reference_pipeline(oracle_input(np.load(clip)), AuralizerConfig())
+np.savez(out, *ref, seconds=time.perf_counter() - t0)
+"""
+TPU_AUDIT = "benchmarks/TPU_PARITY_r05.json"
+# The TPU audit's stage beside each stage of the port's audit that has one.
+TPU_STAGE = {"mip_k1": "mip_pallas_kernel", "mip_planes_k1":
+             "mip_u8_int8_path", "histogram_k3": "hue_histogram_tiled",
+             "contraction_k2": "spectrum_contraction"}
+
+
+def parity_input() -> np.ndarray:
+    """The parity command's input (vaudio_torch/cli.py, cmd_parity), the
+    JAX harness's own: seeded uniform f32 frames."""
+    return np.random.default_rng(0).uniform(
+        0, 1, (PARITY_FRAMES, PARITY_SIZE, PARITY_SIZE, 3)).astype(
+            np.float32)
+
+
+def start_oracles(clips: dict) -> dict:
+    """The literal oracle on each clip, each in a child process of its own
+    (ORACLE_CHILD) started now, while the GPU phases run; phase_oracle
+    reads them.  At exit every child still running is killed and the work
+    directory removed."""
+    import atexit
+    import shutil
+    work = Path(tempfile.mkdtemp(prefix="vaudio_oracle_"))
+    jobs = {}
+    for name, clip in clips.items():
+        np.save(work / f"{name}.npy", clip)
+        jobs[name] = subprocess.Popen(
+            [sys.executable, "-c", ORACLE_CHILD, str(work / f"{name}.npy"),
+             str(work / f"{name}.npz")], env=repo_env(),
+            cwd=Path(__file__).resolve().parent, stdout=subprocess.DEVNULL,
+            stderr=subprocess.PIPE)
+
+    def stop():
+        for proc in jobs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        shutil.rmtree(work, ignore_errors=True)
+
+    atexit.register(stop)
+    return {"procs": jobs, "work": work, "stop": stop}
+
+
+def finish_oracle(jobs: dict, name: str):
+    """(the oracle's four results, its seconds in the child, the seconds
+    waited for it here), failing the run unless the child exits 0 within
+    the watchdog's remaining time."""
+    proc = jobs["procs"][name]
+    t0 = time.perf_counter()
+    limit = max(30.0, _deadline - time.monotonic() - 30)
+    try:
+        _, err = proc.communicate(timeout=limit)
+    except subprocess.TimeoutExpired:
+        jobs["stop"]()
+        fail(f"oracle {name}: still running after {limit:.0f} s")
+    if proc.returncode != 0:
+        fail(f"oracle {name}: exit {proc.returncode}:\n"
+             f"{err.decode(errors='replace')[-3000:]}")
+    with np.load(jobs["work"] / f"{name}.npz") as z:
+        ref = tuple(z[f"arr_{i}"] for i in range(4))
+        seconds = float(z["seconds"])
+    return ref, seconds, time.perf_counter() - t0
+
+
+def phase_oracle(frames: np.ndarray, jobs: dict, smi: str) -> dict:
+    """The port against the reference's literal f64 math on the card
+    (vaudio_torch.utils.parity): (a) the parity command's input, 3 f32
+    frames of 128^2 at AuralizerConfig(), through the per-frame runner (K2'
+    only: the f32 frames take the matmul mip, K3 and K4 are off); (b) the
+    first ORACLE_T structured u8 1080p frames, mono, with use_pallas and
+    use_pallas_vision, through the per-frame runner (K1, K3', K2' and K4
+    once a frame) and the chunked runner (K1, K3, K2 and K4 once), both
+    against one oracle run; each oracle in its child since start_oracles.
+    The counts are set to 0 before each run and read after it (paths
+    oracle_parity, oracle_frame, oracle_chunk), exactly the kernels named.
+    Hues equal and every error under the JAX harness's gates, the errors
+    beside the JAX package's documented results.  (c) audit_stages at
+    1080x1920, each stage beside its tolerance and the TPU audit's figure
+    (benchmarks/TPU_PARITY_r05.json, a TPU v5 lite's, not the port's).
+    Fails on any gate or stage that is not ok, after printing them all."""
+    from vaudio_torch.config import AuralizerConfig
+    from vaudio_torch.utils.parity import audit_stages, run_parity
+    t_phase = time.perf_counter()
+    flagship = AuralizerConfig(use_pallas=True, use_pallas_vision=True)
+    k1234 = ("mip_pool_u8", "vision_stats", "hann_peak_weighted_sum",
+             "agc_overlap_add")
+    runs = (("oracle_parity", "parity", parity_input(), AuralizerConfig(),
+             "frame", {"hann_peak_weighted_sum": PARITY_FRAMES}),
+            ("oracle_frame", "frames", frames, flagship, "frame",
+             {k: len(frames) for k in k1234}),
+            ("oracle_chunk", "frames", frames, flagship, "chunked",
+             {k: 1 for k in k1234}))
+    counts, refs, failed = {}, {}, []
+    for path, name, clip, cfg, runner, want in runs:
+        if name not in refs:
+            refs[name] = finish_oracle(jobs, name)
+        ref, oracle_s, waited_s = refs[name]
+        reset_counts()
+        t0 = time.perf_counter()
+        rep = run_parity(clip, cfg, "cuda", runner, reference=ref)
+        torch.cuda.synchronize()
+        port_s = time.perf_counter() - t0
+        counts[path] = got = read_counts()
+        if got != {k: want.get(k, 0) for k in got}:
+            failed.append(f"{path}: launches {got}, expected {want}")
+        err, gates, bands = rep["max_abs_err"], rep["gates"], rep["bands"]
+        if not rep["ok"]:
+            failed.append(f"{path}: {rep}")
+        say(f"oracle {path}: {len(clip)} {clip.dtype} frames "
+            f"{clip.shape[1]}x{clip.shape[2]} through the {runner} runner "
+            f"on the card against the f64 literal oracle: hues identical "
+            f"{rep['hues_identical']}; grads {err['grads']:.3e} (gate "
+            f"{gates['grads']:.0e}), spectrum {err['spectrum']:.3e} (gate "
+            f"{gates['spectrum']:.0e}; the JAX package's documented "
+            f"{bands['spectrum']:.1e}), pcm {err['pcm']:.3e} (gate "
+            f"{gates['pcm']:.0e}; documented {bands['pcm']:.0e}) "
+            f"{'PASS' if rep['ok'] else 'FAIL'}; launches "
+            f"{ {k: v for k, v in got.items() if v} }; the port "
+            f"{port_s:.3f} s; the oracle {oracle_s:.1f} s in its child on "
+            f"the host's CPU, {waited_s:.1f} s waited for here ({smi})")
+    jobs["stop"]()
+    tpu = json.loads((Path(__file__).resolve().parent / TPU_AUDIT)
+                     .read_text())
+    t0 = time.perf_counter()
+    audit = audit_stages("cuda", res="1080x1920")
+    audit_s = time.perf_counter() - t0
+    for stage, st in audit["stages"].items():
+        got = (f"{st['max_abs_err']:.3e}" if "max_abs_err" in st
+               else f"ERROR {st['error']}")
+        ref_name = TPU_STAGE.get(stage, stage)
+        theirs = (f"{tpu['stages'][ref_name]['max_abs_err']:.3e} "
+                  f"({ref_name}, {TPU_AUDIT}: the TPU's, not the port's)"
+                  if ref_name in tpu["stages"] else "no TPU counterpart")
+        say(f"oracle audit {stage} on the card at 1080x1920: {got} (tol "
+            f"{st['tol']:.3e}) {'PASS' if st['ok'] else 'FAIL'} | "
+            f"{tpu['device']}: {theirs} ({smi})")
+        if not st["ok"]:
+            failed.append(f"audit {stage}: {st}")
+    say(f"oracle: audit_stages {audit_s:.1f} s; the phase "
+        f"{time.perf_counter() - t_phase:.1f} s ({smi})")
+    if failed:
+        fail("oracle: " + "; ".join(failed))
+    return counts
+
+
 def main() -> None:
     global _deadline
     if not torch.cuda.is_available():
@@ -3309,9 +3492,12 @@ def main() -> None:
     mesh_counts, mesh_kernels = phase_mesh(frames, smi)
     counts.update(mesh_counts)
     kernels += mesh_kernels
+    oracles = start_oracles({"parity": parity_input(),
+                             "frames": frames[:ORACLE_T]})
     counts.update(phase_hostpod(frames, smi))
     counts.update(phase_cli(frames, smi))
     phase_entry(frames, smi)
+    counts.update(phase_oracle(frames[:ORACLE_T], oracles, smi))
     for k in kernels:
         base = k.pop("counter")
         k["launches"] = counts[k["path"]][base]

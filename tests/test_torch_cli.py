@@ -229,7 +229,8 @@ def test_info_matches_jax_config_defaults(capsys):
 
 def test_python_m_runs_the_cli():
     """``python -m vaudio_torch info`` in a fresh interpreter imports no
-    jax; ``bench`` and ``parity`` (the JAX harnesses) are not commands."""
+    jax; ``bench`` (the JAX package's benchmark) is not a command, and
+    ``parity`` takes the JAX CLI's flags and defaults."""
     code = ("import runpy, sys\n"
             "sys.argv = ['vaudio_torch', 'info']\n"
             "try:\n"
@@ -242,9 +243,10 @@ def test_python_m_runs_the_cli():
                        text=True, env=module_env(), cwd=REPO, timeout=120)
     assert r.returncode == 0, r.stderr[-2000:]
     assert json.loads(r.stdout)["devices"] == ["cpu"]
-    for cmd in ("bench", "parity"):
-        with pytest.raises(SystemExit):
-            cli.build_parser().parse_args([cmd])
+    with pytest.raises(SystemExit):
+        cli.build_parser().parse_args(["bench"])
+    args = cli.build_parser().parse_args(["parity"])
+    assert (args.frames, args.size) == (3, 128)
 
 
 @pytest.mark.parametrize("argv", [
@@ -254,6 +256,7 @@ def test_python_m_runs_the_cli():
     ["info"],
     ["stream", "--size", "8x8"],
     ["pod", "--size", "8x8", "--input", "clip.npy"],
+    ["parity", "--frames", "1", "--size", "16"],
 ])
 def test_without_a_card_computing_commands_fail(monkeypatch, capsys,
                                                 argv):

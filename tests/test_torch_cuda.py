@@ -1048,3 +1048,15 @@ def test_cli_stream_trace_launches_the_kernels(dev, tmp_path):
         "mip_pool_u8", "hann_peak", "agc_overlap_add", "vision_stats"))
     assert counts == {"mip_pool_u8": 8, "hann_peak": 8,
                       "agc_overlap_add": 8, "vision_stats": 0}, counts
+
+
+def test_audit_stages_on_the_card(dev):
+    """The device audit at 1080p on the card (vaudio_torch.utils.parity
+    .audit_stages): every stage within its tolerance against its f64
+    oracle, each kernel stage through its CUDA kernel (a stage whose kernel
+    did not launch fails)."""
+    from vaudio_torch.utils.parity import audit_stages
+    rep = audit_stages(dev, res="1080x1920")
+    assert rep["device"] == torch.cuda.get_device_name(dev)
+    assert rep["ok"], {k: v for k, v in rep["stages"].items()
+                       if not v["ok"]}

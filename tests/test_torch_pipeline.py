@@ -242,7 +242,9 @@ def test_import_and_slice_leave_jax_out(tmp_path):
     a checkpoint over HTTP and the native frame reader, the multi-device
     paths of vaudio_torch.parallel (dryrun_multichip over a repeated CPU
     device), and the command line, the doctor, a profiler trace of
-    entry()'s step and the examples' modules; with TF32 off."""
+    entry()'s step and the examples' modules, every subpackage, and the
+    ``parity`` command against the literal oracle on one frame; with TF32
+    off."""
     code = textwrap.dedent("""
         import sys
         import time
@@ -364,6 +366,12 @@ def test_import_and_slice_leave_jax_out(tmp_path):
             assert cli.main(["synthetic", "--frames", "2", "--width", "32",
                              "--height", "32", "-o", tmp + "/s.wav"]) == 0
             assert cli.main(["info"]) == 0
+        import vaudio_torch.dsp, vaudio_torch.ops, vaudio_torch.runtime
+        import vaudio_torch.synth, vaudio_torch.utils, vaudio_torch.vision
+        import vaudio_torch.utils.parity
+        with contextlib.redirect_stdout(io.StringIO()) as said:
+            assert cli.main(["parity", "--frames", "1", "--size", "32"]) == 0
+        assert said.getvalue().splitlines()[-1] == "PARITY: PASS"
         assert doctor.check_versions()["status"] == "ok"
         fn, (carry, frame, params) = entry(device="cpu")
         with profiling.trace_context(tmp + "/trace", device="cpu"):

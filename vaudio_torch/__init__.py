@@ -30,7 +30,7 @@ from __future__ import annotations
 
 import torch
 
-from vaudio_torch.config import AuralizerConfig, LiveParams
+from vaudio_torch.config import DEFAULT_CONFIG, AuralizerConfig, LiveParams
 
 __version__ = "0.1.0"
 
@@ -54,4 +54,5 @@ def device(spec=None) -> torch.device:
     return torch.device("cuda")
 
 
-__all__ = ["AuralizerConfig", "LiveParams", "__version__", "device"]
+__all__ = ["AuralizerConfig", "DEFAULT_CONFIG", "LiveParams", "__version__",
+           "device"]

@@ -6,6 +6,7 @@ Usage examples::
     python -m vaudio_torch sonify clip.npy -o out.wav
     python -m vaudio_torch synthetic --hue 0.33 --frames 90 -o green.wav
     python -m vaudio_torch info
+    python -m vaudio_torch parity --frames 3 --size 128
 
 Every command that computes runs on the card.  ``VAUDIO_PLATFORM=cpu``
 runs it on the CPU instead (``VAUDIO_NUM_CPU_DEVICES=N`` then gives
@@ -964,9 +965,33 @@ def cmd_debug(args) -> int:
     return 0
 
 
+def cmd_parity(args) -> int:
+    """The port against the reference's literal f64 math on the JAX
+    harness's own input (``benchmarks/parity.py``): ``--frames`` random
+    f32 frames of ``--size``^2 from seed 0 and ``AuralizerConfig()``,
+    through the per-frame runner, in process; the harness's lines, and
+    exit 0 on PASS, 1 on FAIL."""
+    from vaudio_torch.config import AuralizerConfig
+    from vaudio_torch.utils.parity import run_parity
+    dev = platform_device()
+    n, size = args.frames, args.size
+    frames = np.random.default_rng(0).uniform(
+        0, 1, (n, size, size, 3)).astype(np.float32)
+    print(f"parity: {n} frames of {size}x{size} ...")
+    rep = run_parity(frames, AuralizerConfig(), dev)
+    err = rep["max_abs_err"]
+    print(f"hues identical:      {rep['hues_identical']}")
+    print(f"grads max |err|:     {err['grads']:.3e}")
+    print(f"spectrum max |err|:  {err['spectrum']:.3e}")
+    print(f"pcm max |err|:       {err['pcm']:.3e}  (pcm peak ~1.0)")
+    print("PARITY:", "PASS" if rep["ok"] else "FAIL")
+    return 0 if rep["ok"] else 1
+
+
 def build_parser() -> argparse.ArgumentParser:
     """The CLI's parser: one subcommand each, the JAX CLI's flags (its
-    ``bench`` and ``parity`` run the JAX harnesses and are not here)."""
+    ``bench`` runs the JAX package's benchmark and is not here: it waits
+    for the port's own benchmark)."""
     ap = argparse.ArgumentParser(
         prog="vaudio_torch",
         description="video sonifier on an NVIDIA GPU (PyTorch/CUDA)")
@@ -1313,6 +1338,13 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--brightness", type=float, default=1.0)
     _add_config_args(p)
     p.set_defaults(fn=cmd_debug)
+
+    p = sub.add_parser("parity",
+                       help="verify against the literal reference-math "
+                            "oracle")
+    p.add_argument("--frames", type=int, default=3)
+    p.add_argument("--size", type=int, default=128)
+    p.set_defaults(fn=cmd_parity)
     return ap
 
 

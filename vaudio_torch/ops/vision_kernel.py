@@ -26,12 +26,9 @@ import torch
 
 from vaudio_torch.config import AuralizerConfig
 from vaudio_torch.ops import _build
-from vaudio_torch.vision.features import (_cell_tile_bounds, acos_fdlibm,
-                                          cell_gradient_stats_planes,
-                                          hue_bin_factorization,
-                                          hue_histogram_planes,
-                                          intensity_stencils,
-                                          rgb_to_hsi_planes)
+# The module, not its names: vision.features imports this package, so its
+# names are read at call time.
+from vaudio_torch.vision import features
 
 #: Kernel launches so far (a run resets it to 0 and reads it after).
 launches = 0
@@ -45,7 +42,7 @@ def block_rects(hm: int, wm: int, grid: int) -> np.ndarray:
     cell rr * grid + cc spans x band rr and y band cc), then the cells'
     gradient bands, cw = wm / cells columns each over all rows."""
     cells = grid * grid
-    xb, yb = _cell_tile_bounds(hm, wm, grid)
+    xb, yb = features._cell_tile_bounds(hm, wm, grid)
     tiles = [(y0, yh, x0, xw) for x0, xw in xb for y0, yh in yb]
     cw = wm // cells
     bands = [(0, hm, c * cw, cw) for c in range(cells)]
@@ -65,7 +62,7 @@ def supports(hm: int, wm: int, cfg: AuralizerConfig) -> bool:
     factorable bin count, the linear-slice gradient cells (wm a multiple of
     the cell count), a mip of at least 2 x 2, and the TPU kernel's size
     bound (~1440p mips and below)."""
-    f1, _ = hue_bin_factorization(cfg.num_hue_bins)
+    f1, _ = features.hue_bin_factorization(cfg.num_hue_bins)
     if f1 is None:
         return False
     if not cfg.linear_cell_grads or wm % cfg.num_cells != 0:
@@ -78,10 +75,12 @@ def supports(hm: int, wm: int, cfg: AuralizerConfig) -> bool:
 def vision_stats_plain(mips, cfg: AuralizerConfig):
     """The plain PyTorch version: the port's HSI (with the fdlibm acos),
     histogram, stencil and statistics stages, in the kernel's op order."""
-    h, s, i = rgb_to_hsi_planes(mips[:, 0], mips[:, 1], mips[:, 2],
-                                acos=acos_fdlibm)
-    hist = hue_histogram_planes(h, s, i, cfg)
-    grads = cell_gradient_stats_planes(intensity_stencils(i), cfg)
+    h, s, i = features.rgb_to_hsi_planes(mips[:, 0], mips[:, 1],
+                                         mips[:, 2],
+                                         acos=features.acos_fdlibm)
+    hist = features.hue_histogram_planes(h, s, i, cfg)
+    grads = features.cell_gradient_stats_planes(
+        features.intensity_stencils(i), cfg)
     return hist, grads
 
 

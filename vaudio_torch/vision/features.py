@@ -15,7 +15,7 @@ import numpy as np
 import torch
 
 from vaudio_torch.config import AuralizerConfig
-from vaudio_torch.ops import pool_kernel
+from vaudio_torch.ops import pool_kernel, vision_kernel
 
 _TWO_PI = float(np.float32(2.0 * np.pi))
 
@@ -102,6 +102,14 @@ def rgb_to_hsi_planes(r, g, b, fast_acos: bool = False, acos=None):
         / torch.full((), _TWO_PI, device=theta.device)
     h = torch.where(den != 0.0, h, torch.zeros_like(h))
     return h, s, i
+
+
+def rgb_to_hsi(rgb):
+    """Channels-last wrapper over :func:`rgb_to_hsi_planes`: f32[..., 3]
+    RGB in [0, 1] -> f32[..., 3] (H, S, I)."""
+    rgb = torch.as_tensor(rgb, dtype=torch.float32)
+    h, s, i = rgb_to_hsi_planes(rgb[..., 0], rgb[..., 1], rgb[..., 2])
+    return torch.stack([h, s, i], dim=-1)
 
 
 # ---------------------------------------------------------------------------
@@ -196,6 +204,14 @@ def mip_downsample_planes(planes, level: int, quantize: bool = False,
     return torch.matmul(rows.transpose(-1, -2), pc)
 
 
+def mip_downsample(frame, level: int, quantize: bool = False):
+    """Channels-last wrapper over :func:`mip_downsample_planes`:
+    f32[H, W, C] -> f32[H >> l, W >> l, C]."""
+    frame = torch.as_tensor(frame, dtype=torch.float32)
+    return mip_downsample_planes(frame.permute(2, 0, 1), level,
+                                 quantize).permute(1, 2, 0)
+
+
 # ---------------------------------------------------------------------------
 # Rotation
 # ---------------------------------------------------------------------------
@@ -242,6 +258,13 @@ def feature_stencil_plane(plane):
                 acc = acc + k * padded[..., dy:dy + h, dx:dx + w]
         outs.append(acc)
     return torch.stack(outs, dim=-3)
+
+
+def feature_stencil(hsi):
+    """Channels-last wrapper over :func:`feature_stencil_plane`:
+    f32[H, W, 3] -> f32[H, W, 3, 4]."""
+    hsi = torch.as_tensor(hsi, dtype=torch.float32)
+    return feature_stencil_plane(hsi.permute(2, 0, 1)).permute(2, 3, 0, 1)
 
 
 def intensity_stencils(plane):
@@ -303,11 +326,22 @@ def hue_bin_factorization(bins: int):
     return (None, None) if f2 is None else (bins // f2, f2)
 
 
-def hue_histogram_planes(h, s, i, cfg: AuralizerConfig):
+#: The histogram methods of the JAX package's ``hue_histogram_planes``.
+HISTOGRAM_METHODS = ("tiled", "matmul", "scatter")
+
+
+def hue_histogram_planes(h, s, i, cfg: AuralizerConfig,
+                         method: str = "tiled"):
     """Per-cell hue histogram over gated pixels (convolveFeatures.metal
     :132-165) from (..., Hm, Wm) HSI planes: gate S > 0 and I > 0.1, bin
-    floor(H * 359).  An integer scatter-add; its counts equal those of the
-    JAX package's ``tiled`` method.  Returns f32[..., cells, bins]."""
+    floor(H * 359).  Returns f32[..., cells, bins].
+
+    Every ``method`` of the JAX package (:data:`HISTOGRAM_METHODS`) gives
+    the same integer counts there; here each is one integer scatter-add,
+    the device's form of the reference's atomic add.  An unknown method
+    raises, as in the JAX package."""
+    if method not in HISTOGRAM_METHODS:
+        raise ValueError(f"unknown histogram method {method!r}")
     bins = cfg.num_hue_bins
     cells = cfg.num_cells
     hm, wm = h.shape[-2:]
@@ -327,6 +361,15 @@ def hue_histogram_planes(h, s, i, cfg: AuralizerConfig):
                       torch.ones(flat.numel(), dtype=torch.int32,
                                  device=h.device))
     return hist[:n_hist].reshape(lead + (cells, bins)).to(torch.float32)
+
+
+def hue_histogram(hsi_rot, cfg: AuralizerConfig, method: str = "matmul"):
+    """Rotated-layout wrapper: f32[Wm, Hm, 3] rotated HSI image ->
+    f32[cells, bins], un-rotated into :func:`hue_histogram_planes`."""
+    hsi = torch.rot90(torch.as_tensor(hsi_rot, dtype=torch.float32), k=1,
+                      dims=(0, 1))
+    return hue_histogram_planes(hsi[..., 0], hsi[..., 1], hsi[..., 2], cfg,
+                                method=method)
 
 
 def hist_max_and_arg(hist):
@@ -433,6 +476,14 @@ def cell_gradient_stats_planes(modes, cfg: AuralizerConfig):
     return torch.stack(stats, dim=-2)
 
 
+def cell_gradient_stats(intensity_feat_rot, cfg: AuralizerConfig):
+    """Rotated-layout wrapper: f32[Wm, Hm, 4] rotated mode maps ->
+    f32[cells, 4], un-rotated into :func:`cell_gradient_stats_planes`."""
+    x = torch.as_tensor(intensity_feat_rot, dtype=torch.float32)
+    modes = torch.rot90(x, k=1, dims=(0, 1))
+    return cell_gradient_stats_planes(modes.permute(2, 0, 1), cfg)
+
+
 # ---------------------------------------------------------------------------
 # Full vision step
 # ---------------------------------------------------------------------------
@@ -490,6 +541,15 @@ def frame_mip_planes(frames, cfg: AuralizerConfig):
                                  quantize_int8=cfg.quantize_mips_int8)
 
 
+def use_vision_kernel(hm: int, wm: int, cfg: AuralizerConfig) -> bool:
+    """Gate for the vision-epilogue kernel K3 (:mod:`ops.vision_kernel`):
+    the flag on and an hm x wm mip the kernel takes.  Any device passes:
+    on a CUDA tensor the kernel runs, on a CPU tensor its plain version.
+    (The JAX package also asks for a TPU backend, or its tests' interpret
+    mode on the CPU.)"""
+    return cfg.use_pallas_vision and vision_kernel.supports(hm, wm, cfg)
+
+
 def _rot_pack(modes):
     """(..., 4, hm, wm) mode planes -> the rotated (..., wm, hm, 4) pack of
     the Metal debug buffers."""
@@ -509,11 +569,9 @@ def frame_stats(frames, cfg: AuralizerConfig,
     (T, wm, hm, 4) mode packs ``hue_map``, ``saturation_map`` and
     ``intensity_map``, and ``mip_hsi`` (T, hm, wm, 3)."""
     mip = frame_mip_planes(frames, cfg)
-    if cfg.use_pallas_vision and not compute_debug_maps:
-        # Imported here: ops.vision_kernel imports this module.
-        from vaudio_torch.ops import vision_kernel
-        if vision_kernel.supports(mip.shape[-2], mip.shape[-1], cfg):
-            return vision_kernel.vision_stats(mip.contiguous(), cfg)
+    if (not compute_debug_maps
+            and use_vision_kernel(mip.shape[-2], mip.shape[-1], cfg)):
+        return vision_kernel.vision_stats(mip.contiguous(), cfg)
     h, s, i = rgb_to_hsi_planes(mip[:, 0], mip[:, 1], mip[:, 2],
                                 fast_acos=cfg.fast_hue_acos)
     hist = hue_histogram_planes(h, s, i, cfg)
