@@ -209,7 +209,16 @@ Phases, one line each; any failure exits non-zero:
     the kernels counted (paths ``oracle_parity``, ``oracle_frame``,
     ``oracle_chunk``); then ``audit_stages`` at 1080x1920, every stage
     within its tolerance, each beside the TPU audit's figure
-    (``benchmarks/TPU_PARITY_r05.json``, read as data).
+    (``benchmarks/TPU_PARITY_r05.json``, read as data);
+30. the headline benchmark, ``python -m vaudio_torch bench``, as a child
+    process at 1080p with the default chunks 16,128 (stereo chunked, the
+    blocked scan in 8s, mono), 4 calls a timed loop and at most 4 reps:
+    its JSON line beside the card's name and power limit, failing without
+    a line, with ``value`` <= 0 or with ``fallback_upper_bound`` (the child
+    itself fails if K1, K2 or K4 did not launch); then one call of its
+    chunked callable on 16 device frames in process, counted (path
+    ``bench``: K1, K2 and K4 once), its PCM equal bit for bit to
+    ``run_offline_batched``'s on the same frames.
 
 Each kernel's line gives two times: from CUDA events around a loop of calls
 (``ms``; for a small kernel the host's launch overhead sets it) and the
@@ -226,7 +235,9 @@ after 1140 s prints them and exits non-zero.
 
 from __future__ import annotations
 
+import atexit
 import contextlib
+import ctypes
 import dataclasses
 import faulthandler
 import functools
@@ -234,6 +245,7 @@ import io
 import json
 import os
 import re
+import signal
 import socket
 import subprocess
 import sys
@@ -281,6 +293,37 @@ def fail(msg: str) -> None:
 
 def say(msg: str) -> None:
     print(msg, flush=True)
+
+
+_CHILDREN = []                   # every process spawn() started
+_PRCTL = ctypes.CDLL(None, use_errno=True).prctl
+PR_SET_PDEATHSIG = 1
+
+
+def _die_with_parent() -> None:
+    """In the child, before its exec: SIGKILL when this script ends, also
+    where it ends without running atexit (the watchdog's exit)."""
+    _PRCTL(PR_SET_PDEATHSIG, signal.SIGKILL)
+
+
+def spawn(cmd: list, **kw) -> subprocess.Popen:
+    """subprocess.Popen in a session of its own, killed with everything it
+    started at this script's exit (stop_children), a failed run's too."""
+    proc = subprocess.Popen(cmd, preexec_fn=_die_with_parent,
+                            start_new_session=True, **kw)
+    _CHILDREN.append(proc)
+    return proc
+
+
+def stop_children() -> None:
+    """Kill every spawned process's session and reap the processes."""
+    for proc in _CHILDREN:
+        with contextlib.suppress(ProcessLookupError, PermissionError):
+            os.killpg(proc.pid, signal.SIGKILL)
+        proc.wait()
+
+
+atexit.register(stop_children)
 
 
 def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
@@ -2719,7 +2762,7 @@ def phase_hostpod(frames: np.ndarray, smi: str) -> dict:
                 port = sock.getsockname()[1]
             limit = max(30.0, min(300.0, _deadline - time.monotonic() - 30))
             t0 = time.perf_counter()
-            procs = [subprocess.Popen(
+            procs = [spawn(
                 [sys.executable, str(root / "tests/torch_hostpod_driver.py"),
                  str(pid), "2", str(port), f"{tmp}/clips.npy", out,
                  "--device", HOSTPOD_DEVICE, "--chunk", str(chunk_frames),
@@ -2850,17 +2893,18 @@ runpy.run_module("vaudio_torch", run_name="__main__", alter_sys=True)
 """
 
 
-def start_cli(args: list, info: str = None, **kw) -> subprocess.Popen:
+def start_cli(args: list, info: str = None, env: dict = None,
+              **kw) -> subprocess.Popen:
     """``python -m vaudio_torch <args>`` from the repository's root, on the
-    card (no VAUDIO_PLATFORM); with ``info``, through CLI_PRELUDE."""
-    env = repo_env()
+    card (no VAUDIO_PLATFORM), with ``env``'s variables added; with
+    ``info``, through CLI_PRELUDE."""
+    env = repo_env(**(env or {}))
     env.pop("VAUDIO_PLATFORM", None)
     cmd = ([sys.executable, "-c", CLI_PRELUDE, info, *args] if info
            else [sys.executable, "-m", "vaudio_torch", *args])
     kw.setdefault("stdout", subprocess.PIPE)
     kw.setdefault("stderr", subprocess.PIPE)
-    return subprocess.Popen(cmd, env=env, cwd=Path(__file__).resolve().parent,
-                            **kw)
+    return spawn(cmd, env=env, cwd=Path(__file__).resolve().parent, **kw)
 
 
 def finish_cli(proc: subprocess.Popen, what: str, info: str = None):
@@ -3315,13 +3359,12 @@ def start_oracles(clips: dict) -> dict:
     (ORACLE_CHILD) started now, while the GPU phases run; phase_oracle
     reads them.  At exit every child still running is killed and the work
     directory removed."""
-    import atexit
     import shutil
     work = Path(tempfile.mkdtemp(prefix="vaudio_oracle_"))
     jobs = {}
     for name, clip in clips.items():
         np.save(work / f"{name}.npy", clip)
-        jobs[name] = subprocess.Popen(
+        jobs[name] = spawn(
             [sys.executable, "-c", ORACLE_CHILD, str(work / f"{name}.npy"),
              str(work / f"{name}.npz")], env=repo_env(),
             cwd=Path(__file__).resolve().parent, stdout=subprocess.DEVNULL,
@@ -3440,6 +3483,94 @@ def phase_oracle(frames: np.ndarray, jobs: dict, smi: str) -> dict:
     return counts
 
 
+# ---------------------------------------------------------------------------
+# The headline benchmark, python -m vaudio_torch bench
+# ---------------------------------------------------------------------------
+
+BENCH_ENV = {"VAUDIO_BENCH_ITERS": "4", "VAUDIO_BENCH_MAX_REPS": "4"}
+BENCH_T = 16                     # frames of the in-process counted call
+# bench.py's record (bench.py:357-391) at its default settings, and the
+# card's identity the port adds.
+BENCH_KEYS = ("metric", "value", "unit", "vs_baseline", "us_per_frame",
+              "static_floor_us", "pct_of_floor", "ingest_hbm_gbs", "stable",
+              "valid_reps", "slopes_us", "scan_path_x_realtime",
+              "scan_stable", "scan_block", "mono_x_realtime", "mono_stable",
+              "device", "power_limit_w", "torch", "cuda", "nvcc")
+
+
+def phase_bench(smi: str) -> dict:
+    """The port's headline benchmark, ``python -m vaudio_torch bench``, as
+    a child process at 1080p with the default chunks (16,128) and
+    BENCH_ENV (4 calls a timed loop, at most 4 reps): its JSON line printed
+    with the card's name and power limit, and its measurements' lines from
+    stderr (slopes, each path's first-call launches, which the child itself
+    requires of K1, K2 and K4); fails if the child fails, its line is
+    missing or lacks a key, ``value`` <= 0 or ``fallback_upper_bound`` is
+    set.  Then one call of the bench's chunked callable on BENCH_T device
+    frames in process, the counts set to 0 before it and read after it
+    (path ``bench``): K1, K2 and K4 once, nothing else; its PCM equal bit
+    for bit to ``run_offline_batched`` on the same frames."""
+    from vaudio_torch import bench
+    from vaudio_torch.runtime.chunked import run_offline_batched
+    from vaudio_torch.runtime.step import init_carry
+    t0 = time.perf_counter()
+    out, err, _ = finish_cli(start_cli(["bench"], env=BENCH_ENV), "bench")
+    wall = time.perf_counter() - t0
+    for line in err.splitlines():
+        if re.search(r"median|UPPER BOUND|launches|static floor|peak device",
+                     line):
+            say(line)
+    lines = out.decode(errors="replace").strip().splitlines()
+    try:
+        rec = json.loads(lines[-1])
+    except (IndexError, ValueError):
+        fail(f"bench: no JSON line last on stdout:\n{err[-3000:]}")
+    missing = [k for k in BENCH_KEYS if k not in rec]
+    if missing:
+        fail(f"bench: the line lacks {missing}: {rec}")
+    if not rec["value"] > 0 or rec.get("fallback_upper_bound"):
+        fail(f"bench: no positive slope: {rec}")
+    if rec["device"] != torch.cuda.get_device_name(0):
+        fail(f"bench: the line names {rec['device']!r}")
+    say(f"bench: python -m vaudio_torch bench at 1080x1920, chunks 16,128, "
+        f"{BENCH_ENV}: {wall:.1f} s with the process's start-up ({smi})")
+    say(f"bench line ({smi}): {json.dumps(rec)}")
+
+    cfg = bench.bench_config(2)
+    run = bench.make_runner(cfg, "chunked", 8, torch.device("cuda"))
+    g = torch.Generator(device="cuda")
+    g.manual_seed(0)
+    frames = torch.randint(0, 256, (BENCH_T, 1080, 1920, 3),
+                           dtype=torch.uint8, device="cuda", generator=g)
+    run(init_carry(cfg, "cuda"), frames)            # warm-up
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    _, outs = run(init_carry(cfg, "cuda"), frames)
+    torch.cuda.synchronize()
+    call_ms = 1e3 * (time.perf_counter() - t0)
+    counts = read_counts()
+    want = {"mip_pool_u8": 1, "hann_peak_weighted_sum": 1,
+            "agc_overlap_add": 1}
+    if counts != {k: want.get(k, 0) for k in counts}:
+        fail(f"bench: one chunked call launched {counts}, expected {want}")
+    pcm = outs["pcm"]
+    if pcm.shape != (BENCH_T, cfg.hop_size, 2) or not bool(
+            torch.isfinite(pcm).all()) or not bool((pcm != 0).any()):
+        fail(f"bench: the chunked call's PCM {tuple(pcm.shape)} is not "
+             f"finite and non-zero")
+    ref, _, _ = run_offline_batched(frames, cfg, chunk=BENCH_T,
+                                    device="cuda")
+    if not bits_equal(pcm.reshape(-1, 2), ref):
+        fail("bench: the chunked callable's PCM differs from "
+             "run_offline_batched's on the same frames")
+    say(f"bench: one call of the bench's chunked callable on {BENCH_T} "
+        f"device frames 1080x1920 stereo: {call_ms:.3f} ms, launches "
+        f"{ {k: v for k, v in counts.items() if v} }, PCM equal to "
+        f"run_offline_batched's bit for bit ({smi})")
+    return counts
+
+
 def main() -> None:
     global _deadline
     if not torch.cuda.is_available():
@@ -3498,6 +3629,7 @@ def main() -> None:
     counts.update(phase_cli(frames, smi))
     phase_entry(frames, smi)
     counts.update(phase_oracle(frames[:ORACLE_T], oracles, smi))
+    counts["bench"] = phase_bench(smi)
     for k in kernels:
         base = k.pop("counter")
         k["launches"] = counts[k["path"]][base]

@@ -229,8 +229,9 @@ def test_info_matches_jax_config_defaults(capsys):
 
 def test_python_m_runs_the_cli():
     """``python -m vaudio_torch info`` in a fresh interpreter imports no
-    jax; ``bench`` (the JAX package's benchmark) is not a command, and
-    ``parity`` takes the JAX CLI's flags and defaults."""
+    jax; ``bench`` is a command (the port's benchmark,
+    ``vaudio_torch.bench``) without flags, and ``parity`` takes the JAX
+    CLI's flags and defaults."""
     code = ("import runpy, sys\n"
             "sys.argv = ['vaudio_torch', 'info']\n"
             "try:\n"
@@ -243,8 +244,9 @@ def test_python_m_runs_the_cli():
                        text=True, env=module_env(), cwd=REPO, timeout=120)
     assert r.returncode == 0, r.stderr[-2000:]
     assert json.loads(r.stdout)["devices"] == ["cpu"]
+    assert cli.build_parser().parse_args(["bench"]).fn is cli.cmd_bench
     with pytest.raises(SystemExit):
-        cli.build_parser().parse_args(["bench"])
+        cli.build_parser().parse_args(["bench", "--frames", "1"])
     args = cli.build_parser().parse_args(["parity"])
     assert (args.frames, args.size) == (3, 128)
 
@@ -257,6 +259,7 @@ def test_python_m_runs_the_cli():
     ["stream", "--size", "8x8"],
     ["pod", "--size", "8x8", "--input", "clip.npy"],
     ["parity", "--frames", "1", "--size", "16"],
+    ["bench"],
 ])
 def test_without_a_card_computing_commands_fail(monkeypatch, capsys,
                                                 argv):

@@ -1060,3 +1060,57 @@ def test_audit_stages_on_the_card(dev):
     assert rep["device"] == torch.cuda.get_device_name(dev)
     assert rep["ok"], {k: v for k, v in rep["stages"].items()
                        if not v["ok"]}
+
+
+def test_bench_chunked_callable_equals_the_offline_run(dev):
+    """The bench's timed callable (vaudio_torch.bench, chunked, stereo 48
+    kHz) on 16 device frames of 1080p equals run_offline_batched(chunk=16)
+    bit for bit, and launches K1, K2 and K4 once a call, K3 never."""
+    from vaudio_torch import bench
+    cfg = AuralizerConfig(sample_rate=48000.0, channels=2)
+    frames = structured_frames(91, 16, 1080, 1920)
+    run = bench.make_runner(cfg, "chunked", 8, dev)
+    for _ in range(2):
+        before = bench.launch_counts()
+        carry, out = run(step.init_carry(cfg, dev),
+                         torch.as_tensor(frames, device=dev))
+        torch.cuda.synchronize()
+        after = bench.launch_counts()
+        assert {k: after[k] - before[k] for k in after} == {
+            "pool": 1, "spectrum": 1, "audio": 1, "vision": 0}
+    ref, ref_carry, _ = chunked.run_offline_batched(frames, cfg, chunk=16,
+                                                    device=dev)
+    assert bits_equal(out["pcm"].reshape(-1, 2), ref)
+    assert all(bits_equal(getattr(carry, f).float(),
+                          getattr(ref_carry, f).float())
+               for f in step.StepCarry._fields)
+
+
+def test_bench_command_on_the_card(dev, tmp_path):
+    """``python -m vaudio_torch bench`` at tiny settings on the card: exit
+    0, a parseable last line naming the card, K1, K2 and K4 launched by
+    each measurement (stderr)."""
+    import json
+    import os
+    import subprocess
+    import sys
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = {k: v for k, v in os.environ.items()
+           if k != "VAUDIO_PLATFORM" and not k.startswith("VAUDIO_BENCH_")}
+    env.update(VAUDIO_BENCH_RES="128x256", VAUDIO_BENCH_CHUNKS="8,16",
+               VAUDIO_BENCH_ITERS="1", VAUDIO_BENCH_SLOPE_REPS="1",
+               VAUDIO_BENCH_MAX_REPS="1")
+    env["PYTHONPATH"] = os.pathsep.join(
+        [repo] + [p for p in env.get("PYTHONPATH", "").split(os.pathsep)
+                  if p])
+    r = subprocess.run([sys.executable, "-m", "vaudio_torch", "bench"],
+                       capture_output=True, text=True, env=env,
+                       cwd=tmp_path, timeout=600)
+    assert r.returncode == 0, r.stderr[-3000:]
+    rec = json.loads(r.stdout.strip().splitlines()[-1])
+    assert rec["device"] == torch.cuda.get_device_name(0)
+    assert rec["value"] > 0 and rec["nvcc"] is True
+    assert rec["torch"] == torch.__version__
+    assert {"scan_path_x_realtime", "mono_x_realtime"} <= set(rec)
+    assert r.stderr.count("first call's launches: K1 1, K2 1, K4 1, K3 0") \
+        == 3, r.stderr[-3000:]

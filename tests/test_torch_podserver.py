@@ -263,6 +263,37 @@ class TestSlotAudio:
             req.close()
         _wait_not_busy(server, 0)
 
+    def test_listener_waits_out_a_drain(self, served_pod):
+        """A listener that connects while a drain holds the slot's audio
+        lock (the pod command's WAV writer, drain_exclusive) is served once
+        the drain ends, not refused as if another listener held it."""
+        _pod, server = served_pod
+        _wait_not_busy(server, 0)
+        draining = threading.Event()
+
+        def drain():
+            draining.set()
+            time.sleep(0.3)
+            return "drained"
+
+        result = []
+        t = threading.Thread(
+            target=lambda: result.append(server.drain_exclusive(0, drain)))
+        t.start()
+        assert draining.wait(10)
+        try:
+            req = urllib.request.urlopen(server.url + "slots/0/audio.wav",
+                                         timeout=30)
+            try:
+                head = req.read(44)
+                assert head[:4] == b"RIFF" and head[8:12] == b"WAVE"
+            finally:
+                req.close()
+        finally:
+            t.join(10)
+        assert result == ["drained"]
+        _wait_not_busy(server, 0)
+
 
 class TestReviewRegressions:
     def test_one_slot_pan_angles_post_is_refused(self, served_pod):

@@ -7,6 +7,7 @@ Usage examples::
     python -m vaudio_torch synthetic --hue 0.33 --frames 90 -o green.wav
     python -m vaudio_torch info
     python -m vaudio_torch parity --frames 3 --size 128
+    python -m vaudio_torch bench
 
 Every command that computes runs on the card.  ``VAUDIO_PLATFORM=cpu``
 runs it on the CPU instead (``VAUDIO_NUM_CPU_DEVICES=N`` then gives
@@ -988,10 +989,17 @@ def cmd_parity(args) -> int:
     return 0 if rep["ok"] else 1
 
 
+def cmd_bench(args) -> int:
+    """The port's headline benchmark (:mod:`vaudio_torch.bench`), in this
+    process; its settings come from the ``VAUDIO_BENCH_*`` variables."""
+    from vaudio_torch.bench import main as bench_main
+    return bench_main()
+
+
 def build_parser() -> argparse.ArgumentParser:
     """The CLI's parser: one subcommand each, the JAX CLI's flags (its
-    ``bench`` runs the JAX package's benchmark and is not here: it waits
-    for the port's own benchmark)."""
+    ``bench`` runs the port's benchmark, :mod:`vaudio_torch.bench`, in
+    process, where the JAX CLI runs ``bench.py`` in a subprocess)."""
     ap = argparse.ArgumentParser(
         prog="vaudio_torch",
         description="video sonifier on an NVIDIA GPU (PyTorch/CUDA)")
@@ -1026,6 +1034,9 @@ def build_parser() -> argparse.ArgumentParser:
 
     p = sub.add_parser("info", help="print environment + config info")
     p.set_defaults(fn=cmd_info)
+
+    p = sub.add_parser("bench", help="run the benchmark")
+    p.set_defaults(fn=cmd_bench)
 
     p = sub.add_parser("doctor",
                        help="active environment health checks "

@@ -98,6 +98,10 @@ from vaudio_torch.runtime.control import (CONTROLLABLE,
                                           apply_control_message)
 from vaudio_torch.runtime.server import _SLIDERS, check_auth
 
+#: Seconds a connecting ``audio.wav`` listener waits for a slot's audio
+#: lock before it is refused with 409.
+LISTENER_WAIT_S = 1.0
+
 _PAGE = """<!doctype html><meta charset="utf-8">
 <title>vaudio pod</title>
 <style>
@@ -641,7 +645,10 @@ class PodServer:
         hardware cadence (underruns emit silence per the real-time
         contract, SoundEngine.swift:184-189) until the client leaves."""
         lock = self._audio_lock(slot)
-        if not lock.acquire(blocking=False):
+        # A drain (drain_exclusive) or a probe (audio_busy) holds the lock
+        # for one ring read: wait that out, so that only a listener, which
+        # holds it for as long as it is connected, refuses another.
+        if not lock.acquire(timeout=LISTENER_WAIT_S):
             handler._json({"error": f"slot {slot} audio stream busy "
                            "(one listener per slot)"}, 409)
             return
