@@ -69,7 +69,7 @@ Phases, one line each; any failure exits non-zero:
 12. the debug surface: ``sonify(debug=True)`` (PCM equal to debug=False,
     the JAX package's shapes) and ``inspect_frame`` on a 1080p frame;
 13. a real-time stream: 90 frames paced at 30 fps, its latency p50 / p99
-    and achieved fps;
+    and achieved fps, no frame dropped;
 14. native: the C++ host runtime (``vaudio_torch/native``: the audio ring
     and the read-ahead frame reader) built with g++, its time (right after
     the kernels' build);
@@ -218,7 +218,26 @@ Phases, one line each; any failure exits non-zero:
     itself fails if K1, K2 or K4 did not launch); then one call of its
     chunked callable on 16 device frames in process, counted (path
     ``bench``: K1, K2 and K4 once), its PCM equal bit for bit to
-    ``run_offline_batched``'s on the same frames.
+    ``run_offline_batched``'s on the same frames;
+31. the 4K configuration, 2160x3840 (mip 3 = 270x480, which K3's gate
+    refuses in both packages), on structured clips made by two child
+    processes from before phase 3: K1's interleaved entry at T = 1,
+    8 and 64, its YUV and planar entries at T = 64 and 1, each bit for
+    bit against its plain version, with the column tiles its launch took
+    (``ops.pool_kernel.launch_plan``), both times, the bound and its
+    share; K3 called directly at T = 8 and 1 (counts equal to the plain
+    version's, statistics within atol 1e-6, rtol 1e-5) beside the unfused
+    stages' time a frame; ``Auralizer.sonify`` at chunk 64 with
+    ``use_pallas_vision`` on 64 RGB frames from host and from device
+    memory (PCM equal) and 64 I420 frames, K1, K2 and K4 once and K3
+    never, ms a frame, peak device memory, 2 frames card vs CPU (hues
+    equal, PCM within 1e-4); the live stream on 64 frames per frame and
+    in chunks of 8 (PCM equal to the offline runs on the card, K3 never)
+    with 16 frames of each under the profiler, and 90 frames paced at 30
+    fps with no frame dropped; 16 raw I420 frames (12.4 MB bodies)
+    through ``POST /frames`` (PCM equal to the offline run with the
+    stream's dispatches); and phase 30's bench child and counted call at
+    ``VAUDIO_BENCH_RES=2160x3840`` (``static_floor_us`` 7.96).
 
 Each kernel's line gives two times: from CUDA events around a loop of calls
 (``ms``; for a small kernel the host's launch overhead sets it) and the
@@ -1274,8 +1293,8 @@ def phase_profile(frames, smi: str) -> None:
 
 
 def phase_realtime(frames: np.ndarray, smi: str) -> None:
-    import threading
-
+    """REALTIME_T frames paced at 30 fps through a live stream per frame:
+    latency p50 / p99 and achieved fps; a dropped frame fails the run."""
     from vaudio_torch.api import Auralizer
     cfg = live_config()
     aur = Auralizer(source=frames[:REALTIME_T], config=cfg, device="cuda",
@@ -1294,10 +1313,10 @@ def phase_realtime(frames: np.ndarray, smi: str) -> None:
     aur.raise_if_failed()
     m = aur.metrics
     consumer.join(timeout=30)
-    if m["frames_processed"] != REALTIME_T:
+    if m["frames_processed"] != REALTIME_T or m["dropped_frames"]:
         fail(f"real-time run: {m}")
-    say(f"realtime: {REALTIME_T} frames 1080x1920 stereo 48 kHz paced at "
-        f"{cfg.video_fps:g} fps, per frame (K1-K4): latency p50 "
+    say(f"realtime: {REALTIME_T} frames {res_of(frames)} stereo 48 kHz paced "
+        f"at {cfg.video_fps:g} fps, per frame: latency p50 "
         f"{m['latency_p50_ms']:.3f} ms p99 {m['latency_p99_ms']:.3f} ms "
         f"(+{m['hardware_latency_ms']:.3f} ms sink), achieved "
         f"{m['achieved_fps']:.2f} fps, dropped {m['dropped_frames']}, "
@@ -3498,23 +3517,29 @@ BENCH_KEYS = ("metric", "value", "unit", "vs_baseline", "us_per_frame",
               "device", "power_limit_w", "torch", "cuda", "nvcc")
 
 
-def phase_bench(smi: str) -> dict:
+def phase_bench(smi: str, res=(1080, 1920)) -> dict:
     """The port's headline benchmark, ``python -m vaudio_torch bench``, as
-    a child process at 1080p with the default chunks (16,128) and
-    BENCH_ENV (4 calls a timed loop, at most 4 reps): its JSON line printed
-    with the card's name and power limit, and its measurements' lines from
-    stderr (slopes, each path's first-call launches, which the child itself
-    requires of K1, K2 and K4); fails if the child fails, its line is
-    missing or lacks a key, ``value`` <= 0 or ``fallback_upper_bound`` is
-    set.  Then one call of the bench's chunked callable on BENCH_T device
-    frames in process, the counts set to 0 before it and read after it
-    (path ``bench``): K1, K2 and K4 once, nothing else; its PCM equal bit
-    for bit to ``run_offline_batched`` on the same frames."""
+    a child process at ``res`` (VAUDIO_BENCH_RES) with the default chunks
+    (16,128) and BENCH_ENV (4 calls a timed loop, at most 4 reps): its JSON
+    line printed with the card's name and power limit, and its
+    measurements' lines from stderr (slopes, each path's first-call
+    launches, which the child itself requires of the kernels
+    ``bench.expected_kernels`` names, peak device memory); fails if the
+    child fails, its line is missing or lacks a key, ``value`` <= 0,
+    ``fallback_upper_bound`` is set or ``static_floor_us`` is not
+    ``bench.static_floor_us``'s at ``res``.  Then one call of the bench's
+    chunked callable on BENCH_T device frames in process, the counts set
+    to 0 before it and read after it (path ``bench``): K1, K2 and K4 once,
+    nothing else; its PCM equal bit for bit to ``run_offline_batched`` on
+    the same frames."""
     from vaudio_torch import bench
     from vaudio_torch.runtime.chunked import run_offline_batched
     from vaudio_torch.runtime.step import init_carry
+    H, W = res
     t0 = time.perf_counter()
-    out, err, _ = finish_cli(start_cli(["bench"], env=BENCH_ENV), "bench")
+    out, err, _ = finish_cli(start_cli(
+        ["bench"], env=dict(BENCH_ENV, VAUDIO_BENCH_RES=f"{H}x{W}")),
+        f"bench {H}x{W}")
     wall = time.perf_counter() - t0
     for line in err.splitlines():
         if re.search(r"median|UPPER BOUND|launches|static floor|peak device",
@@ -3532,15 +3557,19 @@ def phase_bench(smi: str) -> dict:
         fail(f"bench: no positive slope: {rec}")
     if rec["device"] != torch.cuda.get_device_name(0):
         fail(f"bench: the line names {rec['device']!r}")
-    say(f"bench: python -m vaudio_torch bench at 1080x1920, chunks 16,128, "
+    cfg = bench.bench_config(2)
+    floor = round(sum(bench.static_floor_us(H, W, cfg)), 2)
+    if rec["static_floor_us"] != floor:
+        fail(f"bench {H}x{W}: static_floor_us {rec['static_floor_us']}, "
+             f"expected {floor}")
+    say(f"bench: python -m vaudio_torch bench at {H}x{W}, chunks 16,128, "
         f"{BENCH_ENV}: {wall:.1f} s with the process's start-up ({smi})")
     say(f"bench line ({smi}): {json.dumps(rec)}")
 
-    cfg = bench.bench_config(2)
     run = bench.make_runner(cfg, "chunked", 8, torch.device("cuda"))
     g = torch.Generator(device="cuda")
     g.manual_seed(0)
-    frames = torch.randint(0, 256, (BENCH_T, 1080, 1920, 3),
+    frames = torch.randint(0, 256, (BENCH_T, H, W, 3),
                            dtype=torch.uint8, device="cuda", generator=g)
     run(init_carry(cfg, "cuda"), frames)            # warm-up
     torch.cuda.synchronize()
@@ -3565,10 +3594,449 @@ def phase_bench(smi: str) -> dict:
         fail("bench: the chunked callable's PCM differs from "
              "run_offline_batched's on the same frames")
     say(f"bench: one call of the bench's chunked callable on {BENCH_T} "
-        f"device frames 1080x1920 stereo: {call_ms:.3f} ms, launches "
+        f"device frames {H}x{W} stereo: {call_ms:.3f} ms, launches "
         f"{ {k: v for k, v in counts.items() if v} }, PCM equal to "
         f"run_offline_batched's bit for bit ({smi})")
     return counts
+
+
+# ---------------------------------------------------------------------------
+# The 4K configuration, 2160x3840 (the JAX package's second published one)
+# ---------------------------------------------------------------------------
+
+UHD = (2160, 3840)               # 4K: mip 3 is 270x480, past K3's gate
+UHD_T = 64                       # frames of the 4K offline and live runs
+UHD_SERVE_T = 16                 # I420 frames of the served 4K run
+UHD_CPU_T = 2                    # 4K frames held card vs CPU
+UHD_PROFILE_T = 16               # frames of each profiled 4K live run
+# The structured 4K clips in child processes, from before the kernel phases
+# (numpy on one host core each, ~15 s for the RGB frames and ~40 s for the
+# YUV ones): ``python -c UHD_CHILD <tests dir> rgb|yuv <T> <H> <W> <out>``
+# writes tests/torch_frames.py's structured_frames (seed 4) or
+# structured_yuv_frames (seed 5) to <out> (.npy, .npz).
+UHD_CHILD = """
+import sys
+import numpy as np
+sys.path.insert(0, sys.argv[1])
+from torch_frames import structured_frames, structured_yuv_frames
+kind, (T, H, W), out = sys.argv[2], map(int, sys.argv[3:6]), sys.argv[6]
+if kind == "rgb":
+    np.save(out, structured_frames(4, T, H, W))
+else:
+    np.savez(out, **structured_yuv_frames(5, T, H, W))
+"""
+
+
+def start_uhd_frames() -> dict:
+    """Start the two UHD_CHILD processes (REALTIME_T RGB frames, UHD_T YUV
+    frames); :func:`finish_uhd_frames` reads their files.  At exit the work
+    directory is removed (spawn() kills a child still running)."""
+    import shutil
+    work = Path(tempfile.mkdtemp(prefix="vaudio_4k_"))
+    atexit.register(shutil.rmtree, work, ignore_errors=True)
+    tests = str(Path(__file__).resolve().parent / "tests")
+    procs = {kind: spawn([sys.executable, "-c", UHD_CHILD, tests, kind,
+                          *map(str, (n, *UHD)), str(work / f"{kind}.{ext}")],
+                         env=repo_env(), stdout=subprocess.DEVNULL,
+                         stderr=subprocess.PIPE)
+             for kind, n, ext in (("rgb", REALTIME_T, "npy"),
+                                  ("yuv", UHD_T, "npz"))}
+    return {"procs": procs, "work": work, "t0": time.perf_counter()}
+
+
+def finish_uhd_frames(jobs: dict, smi: str):
+    """(RGB frames u8[REALTIME_T, *UHD, 3], I420 planes dict of UHD_T
+    frames), failing the run unless both children exit 0."""
+    for kind, proc in jobs["procs"].items():
+        limit = max(30.0, _deadline - time.monotonic() - 30)
+        try:
+            _, err = proc.communicate(timeout=limit)
+        except subprocess.TimeoutExpired:
+            fail(f"4K {kind} frames: still being made after {limit:.0f} s")
+        if proc.returncode != 0:
+            fail(f"4K {kind} frames: exit {proc.returncode}:\n"
+                 f"{err.decode(errors='replace')[-3000:]}")
+    frames = np.load(jobs["work"] / "rgb.npy")
+    with np.load(jobs["work"] / "yuv.npz") as z:
+        yuv = {k: z[k] for k in "yuv"}
+    say(f"frames: {len(frames)} structured u8 RGB and {len(yuv['y'])} I420 "
+        f"frames {UHD[0]}x{UHD[1]} made by two child processes, ready "
+        f"{time.perf_counter() - jobs['t0']:.1f} s after their start "
+        f"({smi})")
+    return frames, yuv
+
+
+def res_of(clip) -> str:
+    """A clip's frame size, HxW."""
+    h, w = (clip["y"] if isinstance(clip, dict) else clip).shape[1:3]
+    return f"{h}x{w}"
+
+
+def plan_of(entry_name: str, T: int, H: int, W: int, level: int) -> str:
+    """The launch K1's entry takes (ops.pool_kernel.launch_plan), as text."""
+    from vaudio_torch.ops import pool_kernel as pk
+    p = pk.launch_plan(entry_name, T, H, W, level)
+    return (f"{p['tiles']} column tile{'s' if p['tiles'] > 1 else ''} of "
+            f"{p['tile']} texels a row, grid {p['tiles']}x{H >> level}x{T}, "
+            f"{p['threads']} threads and {p['smem']} B of shared memory a "
+            f"block")
+
+
+def phase_k1_4k(smi: str) -> list:
+    """K1's three entries at 2160x3840, mip 3, against their plain versions
+    bit for bit (the integer sums exact too): the interleaved RGB entry at
+    T = 1, 8 and 64 (the 4K live per-frame step, the live chunks of 8, the
+    offline chunk), the YUV entry at T = 64 and 1 (the offline I420 chunk,
+    the served I420 per-frame step: Y at mip 3, U, V [T, 1080, 1920] at mip
+    2) and the planar entry on the Y planes at T = 64 and 1 (on no main
+    path, as at 1080p); each with its launch's column tiles, both times, the
+    bound and its share."""
+    from vaudio_torch.ops import pool_kernel as pk
+    H, W = UHD
+    gen = torch.Generator(device="cuda").manual_seed(4)
+
+    def planes(*shape):
+        return torch.randint(0, 256, shape, generator=gen, device="cuda",
+                             dtype=torch.uint8)
+
+    entries = []
+    every = planes(UHD_T, H, W, 3)
+    out_n = (H >> MIP) * (W >> MIP)          # texels of one mip plane
+    for T, path in ((1, "4k_live_frame"), (LIVE_CHUNK, "4k_live_chunk"),
+                    (UHD_T, "4k_offline")):
+        frames = every[:T]
+        chans = frames.permute(0, 3, 1, 2)
+        k = float(4 ** MIP)
+        if not torch.equal(pk.mip_pool(frames, MIP, scale=k),
+                           pk.mip_pool_plain(chans, MIP, scale=k)):
+            fail(f"K1 4K T={T}: integer block sums differ from the plain "
+                 f"version")
+        got = pk.mip_pool(frames, MIP, scale=1.0 / 255.0)
+        ref = pk.mip_pool_plain(chans, MIP, scale=1.0 / 255.0)
+        if got.shape != (T, 3, H >> MIP, W >> MIP) or not bits_equal(got,
+                                                                    ref):
+            fail(f"K1 4K T={T}: differs from the plain version (shape "
+                 f"{tuple(got.shape)})")
+        del got, ref
+        e = entry(f"mip_pool_u8_4k_t{T}", "vaudio_torch/csrc/pool_kernel.cu",
+                  "vaudio/ops/pool_kernel.py:130", 0.0,
+                  lambda: pk.mip_pool(frames, MIP, scale=1.0 / 255.0),
+                  lambda: pk.mip_pool_plain(chans, MIP, 1.0 / 255.0),
+                  nbytes=T * H * W * 3 + 4 * 3 * T * out_n,
+                  ops=T * H * W * 3 + K1_EPILOGUE_OPS * 3 * T * out_n,
+                  path=path, counter="mip_pool_u8")
+        say(f"K1 4K mip_pool u8 [{T},{H},{W},3] mip {MIP}: sums exact, equal "
+            f"to the plain version bit for bit; "
+            f"{plan_of('rgb', T, H, W, MIP)}; {timing(e)}; {share(e)} "
+            f"({smi})")
+        entries.append(e)
+    del every
+    y, u, v = planes(UHD_T, H, W), planes(UHD_T, H // 2, W // 2), \
+        planes(UHD_T, H // 2, W // 2)
+    for T, path in ((UHD_T, "4k_offline_yuv"), (1, "4k_serve_yuv")):
+        yn, un, vn = y[:T], u[:T], v[:T]
+        err = max(k1_planar_check(f"K1 4K planar Y T={T}", yn, MIP, Y_SCALE),
+                  k1_planar_check(f"K1 4K planar U T={T}", un, MIP - 1,
+                                  C_SCALE),
+                  k1_planar_check(f"K1 4K planar V T={T}", vn, MIP - 1,
+                                  C_SCALE))
+        k1_yuv_check(f"K1 4K YUV T={T}", yn, un, vn, MIP)
+        planar = entry(
+            f"mip_pool_planes_u8_4k_t{T}", "vaudio_torch/csrc/pool_kernel.cu",
+            "vaudio/ops/pool_kernel.py:130", err,
+            lambda: pk.mip_pool_planes(yn, MIP, Y_SCALE),
+            lambda: pk.mip_pool_plain(yn, MIP, Y_SCALE),
+            nbytes=T * H * W + 4 * T * out_n,
+            ops=T * H * W + K1_EPILOGUE_OPS * T * out_n, path=path,
+            counter="mip_pool_planes_u8")
+        say(f"K1 4K mip_pool_planes u8 Y [{T},{H},{W}] mip {MIP}: sums exact, "
+            f"U and V [{T},{H // 2},{W // 2}] at mip {MIP - 1} too, equal bit "
+            f"for bit; {plan_of('planes', T, H, W, MIP)}; {timing(planar)}; "
+            f"{share(planar)} (on no main path) ({smi})")
+        fused = entry(
+            f"mip_pool_yuv420_u8_4k_t{T}", "vaudio_torch/csrc/pool_kernel.cu",
+            "vaudio/ops/pool_kernel.py:130", 0.0,
+            lambda: pk.mip_pool_yuv420(yn, un, vn, MIP),
+            lambda: pk.mip_pool_yuv420_plain(yn, un, vn, MIP),
+            nbytes=T * H * W * 3 // 2 + 4 * 3 * T * out_n,
+            ops=T * H * W * 3 // 2 + K1_YUV_TEXEL_OPS * T * out_n, path=path,
+            counter="mip_pool_yuv420_u8")
+        say(f"K1 4K mip_pool_yuv420 u8 one I420 dispatch T={T}: Y "
+            f"[{T},{H},{W}] mip {MIP} + U,V [{T},{H // 2},{W // 2}] mip "
+            f"{MIP - 1} in 1 launch to the clamped RGB mips "
+            f"[{T},3,{H >> MIP},{W >> MIP}]: equal to the plain version bit "
+            f"for bit; {plan_of('yuv420', T, H, W, MIP)}; {timing(fused)}; "
+            f"{share(fused)} ({smi})")
+        entries.append(fused)
+    del y, u, v
+    torch.cuda.empty_cache()
+    return entries
+
+
+def unfused_vision(mips, cfg):
+    """The vision stages after the mip pool where K3's gate refuses the mip
+    (vision.features.frame_stats): HSI with the polynomial acos when
+    ``fast_hue_acos``, the histogram's scatter-add, the stencils, the
+    cells' statistics."""
+    from vaudio_torch.vision import features as vf
+    h, s, i = vf.rgb_to_hsi_planes(mips[:, 0], mips[:, 1], mips[:, 2],
+                                   fast_acos=cfg.fast_hue_acos)
+    return (vf.hue_histogram_planes(h, s, i, cfg),
+            vf.cell_gradient_stats_planes(vf.feature_stencil_plane(i), cfg))
+
+
+def phase_k3_4k(frames: np.ndarray, smi: str) -> None:
+    """K3 called directly on the 270x480 mips of structured 4K frames at
+    T = 8 and 1, where both packages' gate (``supports``) keeps it off the
+    paths: counts equal to the plain version's, statistics within atol
+    1e-6, rtol 1e-5 (tests/test_torch_cuda.py's band); its times beside the
+    bound, and the unfused stages' device time a frame beside it (what
+    the 4K paths run)."""
+    from vaudio_torch.ops import pool_kernel
+    from vaudio_torch.ops import vision_kernel as vk
+    cfg = live_config()
+    mips = pool_kernel.mip_pool(torch.as_tensor(frames[:LIVE_CHUNK],
+                                                device="cuda"),
+                                MIP, scale=1.0 / 255.0)
+    hm, wm = mips.shape[-2:]
+    if vk.supports(hm, wm, cfg) or not vk.kernel_takes(hm, wm, cfg):
+        fail(f"K3 at {hm}x{wm}: the gate takes it, or the kernel does not")
+    for T in (LIVE_CHUNK, 1):
+        m = mips[:T].contiguous()
+        hist, grads = vk.vision_stats(m, cfg)
+        ref_h, ref_g = vk.vision_stats_plain(m, cfg)
+        if not torch.equal(hist, ref_h) or float(hist.sum()) <= 0:
+            fail(f"K3 4K T={T}: the histogram differs from the plain "
+                 f"version's (L1 {float((hist - ref_h).abs().sum())}) or is "
+                 f"empty")
+        if not torch.allclose(grads, ref_g, rtol=1e-5, atol=1e-6):
+            fail(f"K3 4K T={T}: statistics differ from the plain version by "
+                 f"{float((grads - ref_g).abs().max()):.3e}")
+        err = float((grads - ref_g).abs().max())
+        e = entry(f"vision_stats_4k_t{T}",
+                  "vaudio_torch/csrc/vision_kernel.cu",
+                  "vaudio/ops/vision_kernel.py:"
+                  + ("313" if T == 1 else "352"), err,
+                  lambda: vk.vision_stats(m, cfg),
+                  lambda: vk.vision_stats_plain(m, cfg),
+                  nbytes=4 * T * (3 * hm * wm + 16 * (360 + 4)),
+                  ops=T * hm * wm * K3_PIXEL_OPS, path="4k_offline",
+                  counter="vision_stats")
+        unfused_dev = device_ms(lambda: unfused_vision(m, cfg))
+        unfused_ev = cuda_ms(lambda: unfused_vision(m, cfg))
+        say(f"K3 4K vision_stats T={T} mip {hm}x{wm}, called directly (off "
+            f"every 4K path: supports() refuses the mip in both packages): "
+            f"counts equal, statistics max_abs_err {err:.3e}; {timing(e)}; "
+            f"{share(e)}; the unfused stages the 4K paths run instead: "
+            f"{unfused_ev / T:.4f} ms a frame ({unfused_dev / T:.4f} on the "
+            f"device), K3 {e['ms'] / T:.4f} ({e['device_ms'] / T:.4f}) a "
+            f"frame ({smi})")
+
+
+def uhd_launch_check(what: str, launches: dict, pool: str, n_pool: int,
+                     n_k4: int) -> None:
+    """Fail unless a 4K run launched ``pool`` n_pool times, K2 at least
+    once, K4 n_k4 times, and K3 and the other K1 entries never."""
+    other = [k for k in ("mip_pool_u8", "mip_pool_planes_u8",
+                         "mip_pool_yuv420_u8") if k != pool]
+    if (launches[pool] != n_pool or launches["hann_peak_weighted_sum"] < 1
+            or launches["agc_overlap_add"] != n_k4
+            or launches["vision_stats"] or any(launches[k] for k in other)):
+        fail(f"{what}: launches {launches}; expected {pool} {n_pool}, K2, "
+             f"K4 {n_k4}, and no K3 (the gate) nor another K1 entry")
+
+
+def phase_offline_4k(frames: np.ndarray, yuv: dict, smi: str) -> dict:
+    """``Auralizer.sonify`` at 4K, chunk 64, stereo 48 kHz with
+    ``use_pallas_vision`` (K3 gated off, as in the JAX package): RGB from
+    host frames and from device frames (PCM equal bit for bit) and I420;
+    K1 (its entry), K2 and K4 once a chunk, K3 never; ms a frame and peak
+    device memory; the first UHD_CPU_T frames through the chunked path on
+    the card and on the CPU (hues equal, PCM within 1e-4).  Returns the
+    counts by path."""
+    from vaudio_torch.api import Auralizer
+    from vaudio_torch.runtime.chunked import run_offline_batched
+    cfg = dataclasses.replace(offline_config(), use_pallas_vision=True)
+    aur = Auralizer(config=cfg, device="cuda")
+    counts = {}
+    for clip, path in ((frames[:UHD_T], "4k_offline"),
+                       (yuv, "4k_offline_yuv")):
+        is_yuv = isinstance(clip, dict)
+        what = "I420 " if is_yuv else "RGB "
+        aur.sonify(clip)                                 # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        audio = aur.sonify(clip)
+        wall = time.perf_counter() - t0
+        counts[path] = launches = read_counts()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        if audio.shape != (UHD_T * cfg.hop_size, 2) or not np.all(
+                np.isfinite(audio)) or not np.any(audio != 0):
+            fail(f"4K offline {what}: PCM {audio.shape} not finite or silent")
+        uhd_launch_check(f"4K offline {what}", launches, pool_of(clip), 1, 1)
+        line = (f"offline 4K: Auralizer.sonify {UHD_T} {what}frames "
+                f"{res_of(clip)} stereo 48 kHz chunk {CHUNK_T}, "
+                f"use_pallas_vision: {1e3 * wall / UHD_T:.3f} ms/frame from "
+                f"host frames, peak device memory {peak:.2f} GiB")
+        if not is_yuv:
+            dev = torch.as_tensor(clip, device="cuda")
+            aur.sonify(dev)                              # warm-up
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts()
+            t0 = time.perf_counter()
+            again = aur.sonify(dev)
+            wall_dev = time.perf_counter() - t0
+            peak_dev = torch.cuda.max_memory_allocated() / 2**30
+            uhd_launch_check("4K offline from device frames", read_counts(),
+                             "mip_pool_u8", 1, 1)
+            if not np.array_equal(again, audio):
+                fail("4K offline: device frames' PCM differs from host "
+                     "frames'")
+            line += (f"; {1e3 * wall_dev / UHD_T:.3f} ms/frame from device "
+                     f"frames, peak {peak_dev:.2f} GiB, PCM equal bit for "
+                     f"bit")
+            del dev
+        part = clip_slice(clip, 0, UHD_CPU_T)
+        a_gpu, _, d_gpu = run_offline_batched(part, cfg, debug=True,
+                                              device="cuda")
+        a_cpu, _, d_cpu = run_offline_batched(part, cfg, debug=True,
+                                              device="cpu")
+        err = float((a_gpu.cpu() - a_cpu).abs().max())
+        if not torch.equal(d_gpu["hues"].cpu(), d_cpu["hues"]) or \
+                not err <= 1e-4 or not bool((a_cpu != 0).any()):
+            fail(f"4K offline {what}: card vs CPU on {UHD_CPU_T} frames: hues "
+                 f"equal {torch.equal(d_gpu['hues'].cpu(), d_cpu['hues'])}, "
+                 f"PCM max diff {err:.3e}")
+        say(f"{line}; launches { {k: v for k, v in launches.items() if v} } "
+            f"(K3 0: the gate); {UHD_CPU_T} frames card vs CPU: hues equal, "
+            f"PCM max diff {err:.3e} ({smi})")
+    return counts
+
+
+def phase_live_4k(frames: np.ndarray, smi: str) -> dict:
+    """The live stream at 4K (``live_config()``: use_pallas and
+    use_pallas_vision, K3 gated off), UHD_T frames per frame and in chunks
+    of 8: K1, K2 and K4 once a dispatch, K3 never, nothing dropped, the
+    pulled PCM equal bit for bit to the offline runs on the card with the
+    stream's dispatches; UHD_PROFILE_T frames of each under the profiler
+    (host-to-device copies a dispatch, the device's idle share); then
+    REALTIME_T frames paced at 30 fps, none dropped.  Returns the counts by
+    path."""
+    from vaudio_torch.api import Auralizer
+    cfg = live_config()
+    clip = frames[:UHD_T]
+    for chunk in (1, LIVE_CHUNK):                   # warm-up
+        Auralizer(source=frames[:LIVE_CHUNK], config=cfg, device="cuda",
+                  chunk_frames=chunk).run_until_exhausted(timeout=300)
+    torch.cuda.synchronize()
+    counts = {}
+    for chunk, path in ((1, "4k_live_frame"), (LIVE_CHUNK, "4k_live_chunk")):
+        aur = Auralizer(source=clip, config=cfg, device="cuda",
+                        chunk_frames=chunk)
+        reset_counts()
+        t0 = time.perf_counter()
+        aur.run_until_exhausted(timeout=300)
+        wall = time.perf_counter() - t0
+        counts[path] = launches = read_counts()
+        m = aur.metrics
+        got = aur.pull(UHD_T * cfg.hop_size * cfg.channels)
+        uhd_launch_check(f"4K live chunk_frames={chunk}", launches,
+                         "mip_pool_u8", UHD_T // chunk, UHD_T // chunk)
+        if m["frames_processed"] != UHD_T or m["dropped_frames"]:
+            fail(f"4K live chunk_frames={chunk}: {m}")
+        ref = offline_by_pattern(clip, [chunk] * (UHD_T // chunk), cfg)
+        if not np.array_equal(got, ref) or not np.any(got != 0):
+            fail(f"4K live chunk_frames={chunk}: the pulled PCM differs from "
+                 f"the offline run on the card (or is silent)")
+        say(f"live 4K: Auralizer(...).run_until_exhausted {UHD_T} frames "
+            f"{res_of(clip)} stereo 48 kHz chunk_frames={chunk}: "
+            f"{1e3 * wall / UHD_T:.3f} ms/frame, latency p50 "
+            f"{m['latency_p50_ms']:.3f} ms p99 {m['latency_p99_ms']:.3f} ms "
+            f"(unpaced); PCM equal to the offline run on the card; launches "
+            f"{ {k: v for k, v in launches.items() if v} } in "
+            f"{m['dispatches']} dispatches (K3 0: the gate) ({smi})")
+        source = frames[:UHD_PROFILE_T]
+        aur = Auralizer(source=source, config=cfg, device="cuda",
+                        chunk_frames=chunk)
+        rows, wall_ms = profiled(lambda: aur.run_until_exhausted(
+            timeout=300))
+        say(profile_line(f"live 4K chunk_frames={chunk}", rows, wall_ms,
+                         UHD_PROFILE_T, aur.metrics["dispatches"], smi,
+                         shape=f"{res_of(source)} stereo"))
+    phase_realtime(frames, smi)
+    return counts
+
+
+def phase_serve_4k(yuv: dict, smi: str) -> dict:
+    """UHD_SERVE_T I420 4K frames as raw bodies (12.4 MB each) through
+    ``POST /frames`` of a served stream at ``live_config()``, per frame:
+    K1's YUV entry, K2 and K4 once a dispatch, K3 never; nothing dropped;
+    the pulled PCM equal bit for bit to the offline run on the card with
+    the stream's dispatches.  Returns the counts by path."""
+    from vaudio_torch.api import Auralizer
+    from vaudio_torch.io import PushSource
+    cfg = live_config()
+    clip = clip_slice(yuv, 0, UHD_SERVE_T)
+    with tempfile.TemporaryDirectory() as tmp:
+        log = os.path.join(tmp, "dispatches.jsonl")
+        ps = PushSource(maxsize=UHD_SERVE_T, when_empty="block")
+        aur = Auralizer(source=ps, config=cfg, device="cuda", metrics_log=log)
+        srv = aur.serve(port=0)
+        try:
+            reset_counts()
+            t0 = time.perf_counter()
+            aur.start()
+            push_clip(srv.url, clip)
+            wait_stream_end(aur, 300, "serve 4K")
+            wall = time.perf_counter() - t0
+            launches = read_counts()
+            m = aur.metrics
+            got = aur.pull(UHD_SERVE_T * cfg.hop_size * cfg.channels)
+        finally:
+            srv.stop()
+            aur.stop()
+        pattern = [json.loads(line)["frames"] for line in open(log)]
+    if (m["frames_processed"] != UHD_SERVE_T or m["dropped_frames"]
+            or ps.dropped or ps.pushed != UHD_SERVE_T):
+        fail(f"serve 4K: {m}, queue {ps.state()}")
+    uhd_launch_check("serve 4K", launches, "mip_pool_yuv420_u8",
+                     len(pattern), len(pattern))
+    ref = offline_by_pattern(clip, pattern, cfg)
+    if not np.array_equal(got, ref) or not np.any(got != 0):
+        fail("serve 4K: the pulled PCM differs from the offline run on the "
+             "card (or is silent)")
+    body = sum(clip[k][0].nbytes for k in "yuv")
+    say(f"serve 4K: {UHD_SERVE_T} raw I420 frames {res_of(clip)} "
+        f"({body / 1e6:.1f} MB bodies) stereo 48 kHz through "
+        f"POST /frames, per frame: {1e3 * wall / UHD_SERVE_T:.3f} ms/frame "
+        f"from the first push to the stream's end; latency p50 "
+        f"{m['latency_p50_ms']:.3f} ms p99 {m['latency_p99_ms']:.3f} ms; "
+        f"nothing dropped; PCM equal to the offline run on the card with the "
+        f"stream's {len(pattern)} dispatches; launches "
+        f"{ {k: v for k, v in launches.items() if v} } (K3 0: the gate) "
+        f"({smi})")
+    return {"4k_serve_yuv": launches}
+
+
+def phase_4k(jobs: dict, smi: str):
+    """The 4K configuration (2160x3840, mip 3 = 270x480) through the
+    port's main path: K1's entries and K3 called directly, then the
+    offline, live, paced, served and bench paths, each with its launches
+    (K3 never: its gate refuses the 4K mip, as in the JAX package).
+    Returns (the kernels' entries, the counts by path)."""
+    t0 = time.perf_counter()
+    frames, yuv = finish_uhd_frames(jobs, smi)
+    kernels = phase_k1_4k(smi)
+    phase_k3_4k(frames, smi)
+    counts = phase_offline_4k(frames, yuv, smi)
+    counts.update(phase_live_4k(frames, smi))
+    counts.update(phase_serve_4k(yuv, smi))
+    counts["4k_bench"] = phase_bench(smi, UHD)
+    say(f"4K: the phase took {time.perf_counter() - t0:.1f} s ({smi})")
+    return kernels, counts
 
 
 def main() -> None:
@@ -3593,6 +4061,7 @@ def main() -> None:
     say(f"frames: {LIVE_T} structured YUV 4:2:0 frames 1080x1920 (I420, "
         f"BT.601 studio swing) made in {time.perf_counter() - t0:.1f} s on "
         f"the host ({smi})")
+    uhd_jobs = start_uhd_frames()
     kernels = [*phase_k1(smi), *phase_k1_planar(smi), *phase_k2(smi)]
     counts, ms = {}, {}
     counts["offline"], ms["offline"] = phase_offline(frames[:CHUNK_T], smi)
@@ -3630,6 +4099,9 @@ def main() -> None:
     phase_entry(frames, smi)
     counts.update(phase_oracle(frames[:ORACLE_T], oracles, smi))
     counts["bench"] = phase_bench(smi)
+    uhd_kernels, uhd_counts = phase_4k(uhd_jobs, smi)
+    kernels += uhd_kernels
+    counts.update(uhd_counts)
     for k in kernels:
         base = k.pop("counter")
         k["launches"] = counts[k["path"]][base]

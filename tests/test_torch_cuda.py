@@ -1114,3 +1114,92 @@ def test_bench_command_on_the_card(dev, tmp_path):
     assert {"scan_path_x_realtime", "mono_x_realtime"} <= set(rec)
     assert r.stderr.count("first call's launches: K1 1, K2 1, K4 1, K3 0") \
         == 3, r.stderr[-3000:]
+
+
+# The 4K configuration, 2160x3840: mip 3 is 270x480.
+UHD = (2160, 3840)
+
+
+@pytest.mark.parametrize("T", [1, 2])
+@pytest.mark.parametrize("entry", pool_kernel.ENTRIES)
+def test_k1_at_4k_matches_plain(dev, gen, entry, T):
+    """K1's three entries at 2160x3840, mip 3 (every interleaved launch
+    there cuts its rows into column tiles: a band is 92 KB): the integer
+    block sums exact and the mips equal to the plain version bit for bit;
+    one launch a call."""
+    H, W = UHD
+    before = k1_counts()
+    if entry == "yuv420":
+        y, u, v = yuv_planes(gen, T, H, W, dev)
+        got = pool_kernel.mip_pool_yuv420(y, u, v, 3)
+        ref = pool_kernel.mip_pool_yuv420_plain(y, u, v, 3)
+        assert k1_counts(before) == (1, 0, 0)
+    else:
+        shape = (T, H, W, 3) if entry == "rgb" else (T, H, W)
+        x = torch.as_tensor(gen.integers(0, 256, shape, dtype=np.uint8),
+                            device=dev)
+        fn = (pool_kernel.mip_pool if entry == "rgb"
+              else pool_kernel.mip_pool_planes)
+        planes = x.permute(0, 3, 1, 2) if entry == "rgb" else x
+        assert torch.equal(fn(x, 3, 64.0),
+                           pool_kernel.mip_pool_plain(planes, 3, 64.0))
+        got = fn(x, 3, 1 / 255.0)
+        ref = pool_kernel.mip_pool_plain(planes, 3, 1 / 255.0)
+        assert k1_counts(before) == ((0, 0, 2) if entry == "rgb"
+                                     else (0, 2, 0))
+    assert got.shape[-2:] == (270, 480) and got.shape[0] == T
+    assert bits_equal(got, ref)
+
+
+@pytest.mark.parametrize("entry,T,H,W,tile,tiles", [
+    ("rgb", 1, 2160, 3840, 272, 2), ("rgb", 64, 2160, 3840, 272, 2),
+    ("yuv420", 64, 2160, 3840, 480, 1), ("yuv420", 1, 2160, 3840, 240, 2),
+    ("planes", 64, 2160, 3840, 480, 1), ("planes", 1, 2160, 3840, 240, 2),
+    ("rgb", 64, 1080, 1920, 240, 1), ("rgb", 1, 1080, 1920, 64, 4),
+])
+def test_k1_launch_plan(dev, entry, T, H, W, tile, tiles):
+    """The column tiles K1 takes at mip 3: at 4K the interleaved entry's
+    band passes 64 KB at every T (2 tiles of 272 and 208 texels); the YUV
+    and planar entries' fit, and split only for occupancy at T = 1, as
+    the interleaved entry at 1080p, T = 1."""
+    plan = pool_kernel.launch_plan(entry, T, H, W, 3)
+    assert (plan["tile"], plan["tiles"]) == (tile, tiles)
+    assert plan["smem"] <= 64 * 1024 and plan["threads"] <= 512
+
+
+@pytest.mark.parametrize("T", [1, 8])
+def test_k3_at_the_4k_mip_matches_plain(dev, gen, T):
+    """K3 called directly at 270x480, the 4K mip, which ``supports`` (the
+    JAX package's gate) keeps off every path: counts exact, statistics
+    within atol 1e-6, rtol 1e-5, as at 1080p."""
+    cfg = AuralizerConfig()
+    assert not vision_kernel.supports(270, 480, cfg)
+    assert vision_kernel.kernel_takes(270, 480, cfg)
+    mips = gen.uniform(0, 1, (T, 3, 270, 480)).astype(np.float32)
+    mips[:, :, :16] = 0.05
+    mips[:, :, 16:32] = 0.7
+    mips = torch.as_tensor(mips, device=dev)
+    before = vision_kernel.launches
+    hist, grads = vision_kernel.vision_stats(mips, cfg)
+    assert vision_kernel.launches == before + 1
+    ref_h, ref_g = vision_kernel.vision_stats_plain(mips, cfg)
+    assert torch.equal(hist, ref_h) and float(hist.sum()) > 0
+    torch.testing.assert_close(grads, ref_g, rtol=1e-5, atol=1e-6)
+
+
+def test_4k_offline_on_the_card_matches_the_cpu(dev):
+    """Two structured 4K frames through the chunked path with
+    use_pallas_vision: K1, K2 and K4 once, K3 never (the gate); hues equal
+    to the CPU's and PCM within 1e-4."""
+    cfg = AuralizerConfig(sample_rate=48000.0, channels=2,
+                          use_pallas_vision=True)
+    frames = structured_frames(6, 2, *UHD)
+    before = (vision_kernel.launches, k1_counts())
+    a_gpu, _, d_gpu = chunked.run_offline_batched(frames, cfg, debug=True,
+                                                  device=dev)
+    assert vision_kernel.launches == before[0]
+    assert k1_counts(before[1]) == (0, 0, 1)
+    a_cpu, _, d_cpu = chunked.run_offline_batched(frames, cfg, debug=True,
+                                                  device="cpu")
+    assert torch.equal(d_gpu["hues"].cpu(), d_cpu["hues"])
+    assert float((a_gpu.cpu() - a_cpu).abs().max()) <= 1e-4

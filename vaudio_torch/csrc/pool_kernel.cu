@@ -494,6 +494,34 @@ struct Launch {
     }
 };
 
+// Each entry's launch for z frames (planes) of H x W at `level`.
+Launch<1> rgb_launch(int z, int H, int W, int level) {
+    const int k = 1 << level;
+    const PlaneShape planes[1] = {{3 * k, k}};
+    return Launch<1>(W >> level, H >> level, z, planes);
+}
+
+Launch<1> planes_launch(int z, int H, int W, int level) {
+    const int k = 1 << level;
+    const PlaneShape planes[1] = {{k, k}};
+    return Launch<1>(W >> level, H >> level, z, planes);
+}
+
+Launch<3> yuv420_launch(int z, int H, int W, int level) {
+    const int k = 1 << level;
+    const PlaneShape planes[3] = {{k, k}, {k >> 1, k >> 1},
+                                  {k >> 1, k >> 1}};
+    return Launch<3>(W >> level, H >> level, z, planes);
+}
+
+template <int kPlanes>
+void write_plan(const Launch<kPlanes>& launch, int* plan) {
+    plan[0] = launch.tile;
+    plan[1] = launch.tiles;
+    plan[2] = launch.smem;
+    plan[3] = launch.threads;
+}
+
 bool grid_fits(int ho, int z) { return ho <= 65535 && z <= 65535; }
 
 // Lets `kernel` take `smem` bytes of dynamic shared memory (above 48 KB
@@ -522,9 +550,7 @@ extern "C" int vaudio_mip_pool_u8(const void* frames, void* out, int T,
     const int wo = W >> level;
     if (T <= 0 || ho <= 0 || wo <= 0) return cudaSuccess;
     if (!grid_fits(ho, T)) return cudaErrorInvalidConfiguration;
-    const int k = 1 << level;
-    const PlaneShape planes[1] = {{3 * k, k}};
-    const Launch<1> launch(wo, ho, T, planes);
+    const Launch<1> launch = rgb_launch(T, H, W, level);
     const cudaError_t err =
         allow_smem(mip_pool_u8_kernel, launch.smem, u8_smem);
     if (err != cudaSuccess) return err;
@@ -546,9 +572,7 @@ extern "C" int vaudio_mip_pool_planes_u8(const void* planes, void* out,
     const int wo = W >> level;
     if (N <= 0 || ho <= 0 || wo <= 0) return cudaSuccess;
     if (!grid_fits(ho, N)) return cudaErrorInvalidConfiguration;
-    const int k = 1 << level;
-    const PlaneShape shape[1] = {{k, k}};
-    const Launch<1> launch(wo, ho, N, shape);
+    const Launch<1> launch = planes_launch(N, H, W, level);
     const cudaError_t err =
         allow_smem(mip_pool_planes_kernel, launch.smem, planes_smem);
     if (err != cudaSuccess) return err;
@@ -558,6 +582,27 @@ extern "C" int vaudio_mip_pool_planes_u8(const void* planes, void* out,
         static_cast<const uint8_t*>(planes), static_cast<float*>(out), H, W,
         level, launch.tile, gain, offset);
     return static_cast<int>(cudaGetLastError());
+}
+
+// The launch an entry takes for T frames (planes) of H x W at `level`:
+// entry 0 the interleaved RGB entry, 1 the planar entry, 2 the YUV entry
+// (its chroma bands follow from the luma's); plan[0..3] = the column tile
+// in output texels, the tiles of a row, a block's shared-memory bytes and
+// its threads.  Returns cudaErrorInvalidValue for an unknown entry or an
+// empty output.
+extern "C" int vaudio_mip_pool_plan(int entry, int T, int H, int W,
+                                    int level, int* plan) {
+    if (T <= 0 || level < 0 || (H >> level) <= 0 || (W >> level) <= 0)
+        return cudaErrorInvalidValue;
+    if (entry == 0)
+        write_plan(rgb_launch(T, H, W, level), plan);
+    else if (entry == 1)
+        write_plan(planes_launch(T, H, W, level), plan);
+    else if (entry == 2 && level >= 1)
+        write_plan(yuv420_launch(T, H, W, level), plan);
+    else
+        return cudaErrorInvalidValue;
+    return cudaSuccess;
 }
 
 // y: u8 (T, H, W); u, v: u8 (T, Hc, Wc), all contiguous, with
@@ -576,10 +621,7 @@ extern "C" int vaudio_mip_pool_yuv420_u8(
     if (level < 1 || (Hc >> (level - 1)) < hm || (Wc >> (level - 1)) < wm)
         return cudaErrorInvalidValue;
     if (!grid_fits(hm, T)) return cudaErrorInvalidConfiguration;
-    const int k = 1 << level;
-    const int kc = k >> 1;
-    const PlaneShape planes[3] = {{k, k}, {kc, kc}, {kc, kc}};
-    const Launch<3> launch(wm, hm, T, planes);
+    const Launch<3> launch = yuv420_launch(T, H, W, level);
     const cudaError_t err = allow_smem(mip_pool_yuv420_kernel, launch.smem,
                                        yuv420_smem);
     if (err != cudaSuccess) return err;

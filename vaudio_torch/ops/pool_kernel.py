@@ -23,6 +23,8 @@ kernel.
 
 from __future__ import annotations
 
+import ctypes
+
 import numpy as np
 import torch
 
@@ -81,6 +83,25 @@ def mip_pool(frames, level: int, scale: float = 1.0):
     _build.check(err, "mip_pool")
     launches += 1
     return out
+
+
+#: The entries of :func:`launch_plan`, in the C interface's numbering.
+ENTRIES = ("rgb", "planes", "yuv420")
+
+
+def launch_plan(entry: str, T: int, H: int, W: int, level: int) -> dict:
+    """The launch K1's ``entry`` (:data:`ENTRIES`) takes on the card for T
+    frames (or planes) of H x W at ``level``: ``tile`` (output texels of a
+    column tile), ``tiles`` (tiles a row), ``smem`` (a block's shared
+    memory, bytes) and ``threads`` (a block's).  Rows are cut into tiles
+    where a row's band would pass 64 KB of shared memory (every 4K RGB
+    launch at mip 3) or where the launch would have fewer than 4 blocks an
+    SM.  Needs the card (the plan reads its SM count)."""
+    plan = (ctypes.c_int * 4)()
+    err = _build.lib().vaudio_mip_pool_plan(ENTRIES.index(entry), T, H, W,
+                                            level, ctypes.addressof(plan))
+    _build.check(err, "launch_plan")
+    return dict(zip(("tile", "tiles", "smem", "threads"), plan))
 
 
 def _check_level(what: str, level: int, H: int, W: int) -> None:

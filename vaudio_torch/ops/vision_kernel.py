@@ -14,7 +14,8 @@ on the host and kept on the device per shape.
 :func:`vision_stats_plain` (the port's vision stages in the kernel's op
 order), a CUDA tensor the kernel.  :func:`supports` is the JAX package's
 gate, size bound included, so that both packages take the same numerics at
-every shape.
+every shape; :func:`vision_stats` itself takes any mip the kernel takes
+(:func:`kernel_takes`), the 4K mip included.
 """
 
 from __future__ import annotations
@@ -57,19 +58,26 @@ def _device_rects(hm: int, wm: int, grid: int, device) -> torch.Tensor:
     return torch.as_tensor(block_rects(hm, wm, grid).copy(), device=device)
 
 
-def supports(hm: int, wm: int, cfg: AuralizerConfig) -> bool:
-    """The JAX package's gate (vaudio/ops/vision_kernel.py:105-123): a
-    factorable bin count, the linear-slice gradient cells (wm a multiple of
-    the cell count), a mip of at least 2 x 2, and the TPU kernel's size
-    bound (~1440p mips and below)."""
+def kernel_takes(hm: int, wm: int, cfg: AuralizerConfig) -> bool:
+    """What the CUDA kernel itself takes: a factorable bin count, the
+    linear-slice gradient cells (wm a multiple of the cell count) and a mip
+    of at least 2 x 2, at any size."""
     f1, _ = features.hue_bin_factorization(cfg.num_hue_bins)
     if f1 is None:
         return False
     if not cfg.linear_cell_grads or wm % cfg.num_cells != 0:
         return False
-    if hm < 2 or wm < 2:
-        return False
-    return hm * wm * 4 * 26 <= (10 << 20)
+    return hm >= 2 and wm >= 2
+
+
+def supports(hm: int, wm: int, cfg: AuralizerConfig) -> bool:
+    """The JAX package's gate (vaudio/ops/vision_kernel.py:105-123):
+    :func:`kernel_takes` and the TPU kernel's VMEM bound, hm * wm * 4 * 26
+    <= 10 MB (~1440p mips and below; the 4K mip, 270 x 480, is refused).
+    The paths route through it, so that both packages take the same
+    numerics at every shape; the card's kernel has no such bound and is
+    called beyond it only directly."""
+    return kernel_takes(hm, wm, cfg) and hm * wm * 4 * 26 <= (10 << 20)
 
 
 def vision_stats_plain(mips, cfg: AuralizerConfig):
@@ -97,9 +105,10 @@ def vision_stats(mips, cfg: AuralizerConfig):
                          f"(T, 3, hm, wm); got {mips.dtype} "
                          f"{tuple(mips.shape)}")
     T, _, hm, wm = mips.shape
-    if not supports(hm, wm, cfg):
+    if not kernel_takes(hm, wm, cfg):
         raise ValueError(f"vision_stats: the kernel does not take a "
-                         f"{hm}x{wm} mip with this config (see supports)")
+                         f"{hm}x{wm} mip with this config (see "
+                         f"kernel_takes)")
     cells, bins = cfg.num_cells, cfg.num_hue_bins
     if bins * 4 > 227 * 1024:
         raise ValueError(f"vision_stats: a histogram of {bins} bins does "
