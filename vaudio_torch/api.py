@@ -41,6 +41,7 @@ from vaudio_torch.runtime.chunked import run_offline_batched
 from vaudio_torch.runtime.engine import make_engine
 from vaudio_torch.runtime.step import num_frames, run_offline
 from vaudio_torch.runtime.stream import StreamingAuralizer
+from vaudio_torch.utils.profiling import span
 from vaudio_torch.vision.features import extract_features
 
 # A source is a (T, H, W, 3) array, a bare iterable of frames (arrays or
@@ -108,30 +109,32 @@ class Auralizer:
         ``mode``: ``"chunked"`` = the chunk-batched pipeline; ``"scan"`` =
         frame by frame; ``"auto"`` picks chunked for clips of >= 8 frames.
         """
-        if isinstance(frames, ArraySource):
-            frames = frames.tensor()
-        if self.model == "orthomodes":
-            if debug:
-                raise ValueError("the OrthoModes family has no cell "
-                                 "debug surface (per-pixel model); "
-                                 "sonify with debug=False")
-            if isinstance(frames, dict):
-                raise ValueError("the OrthoModes family is RGB-only")
-            return self._engine.model.sonify(
-                frames, self._engine.params_arrays(self.params))
-        if mode not in ("auto", "chunked", "scan"):
-            raise ValueError(f"unknown sonify mode {mode!r} "
-                             f"(expected auto, chunked or scan)")
-        if mode == "auto":
-            mode = "chunked" if num_frames(frames) >= 8 else "scan"
-        run = run_offline_batched if mode == "chunked" else run_offline
-        audio, _carry, dbg = run(frames, self.config,
-                                 self.params.as_arrays(), debug=debug,
-                                 device=self.device)
-        audio = audio.cpu().numpy()
-        if not debug:
-            return audio
-        return audio, {k: v.cpu().numpy() for k, v in dbg.items()}
+        with span("vaudio.sonify"):
+            if isinstance(frames, ArraySource):
+                frames = frames.tensor()
+            if self.model == "orthomodes":
+                if debug:
+                    raise ValueError("the OrthoModes family has no cell "
+                                     "debug surface (per-pixel model); "
+                                     "sonify with debug=False")
+                if isinstance(frames, dict):
+                    raise ValueError("the OrthoModes family is RGB-only")
+                return self._engine.model.sonify(
+                    frames, self._engine.params_arrays(self.params))
+            if mode not in ("auto", "chunked", "scan"):
+                raise ValueError(f"unknown sonify mode {mode!r} "
+                                 f"(expected auto, chunked or scan)")
+            if mode == "auto":
+                mode = "chunked" if num_frames(frames) >= 8 else "scan"
+            run = run_offline_batched if mode == "chunked" else run_offline
+            audio, _carry, dbg = run(frames, self.config,
+                                     self.params.as_arrays(), debug=debug,
+                                     device=self.device)
+            with span("vaudio.readback"):
+                audio = audio.cpu().numpy()
+            if not debug:
+                return audio
+            return audio, {k: v.cpu().numpy() for k, v in dbg.items()}
 
     def sonify_to_wav(self, frames, path: str) -> np.ndarray:
         audio = self.sonify(frames)

@@ -32,6 +32,7 @@ from vaudio_torch.synth.spectrum import (SynthConstants, _stream_rows,
                                          live_pan_from_params,
                                          partial_weights, phase_accumulate,
                                          phase_advance, rotate_spectrum)
+from vaudio_torch.utils.profiling import span
 from vaudio_torch.vision.features import (frame_stats, hist_max_and_arg,
                                           update_hues_from_stats)
 
@@ -79,68 +80,72 @@ def chunk_pipeline(carry: StepCarry, frames, params: Dict[str, Any],
         T = num_frames(frames)
 
     # ---- pass A: vision stats batched; hue EMA (and phases) serial ----
-    hists, grads_seq = frame_stats(frames, cfg)         # (T,16,360), (T,16,4)
-    if pod:                                     # time-major: (T, S, 16, .)
-        hists, grads_seq = (x.reshape((S, T) + x.shape[1:]).transpose(0, 1)
-                            for x in (hists, grads_seq))
-    max_vals, args = hist_max_and_arg(hists)
+    with span("vaudio.step.vision"):
+        hists, grads_seq = frame_stats(frames, cfg)     # (T,16,360), (T,16,4)
+        if pod:                                 # time-major: (T, S, 16, .)
+            hists, grads_seq = (
+                x.reshape((S, T) + x.shape[1:]).transpose(0, 1)
+                for x in (hists, grads_seq))
+        max_vals, args = hist_max_and_arg(hists)
 
-    hues = carry.hues
-    hue_list = []
-    for t in range(T):
-        hues = update_hues_from_stats(max_vals[t], args[t], hues, mixing,
-                                      cfg)
-        hue_list.append(hues)
-    hues_seq = torch.stack(hue_list)
-    if cfg.use_cumsum_phases:
-        # phases_t = (phases_0 + sum_{k<=t} adv_k) mod 2pi as the JAX
-        # package's mod-2pi associative scan, in its combine order.
-        two_pi = float(np.float32(2.0 * np.pi))
-        adv = phase_advance(hues_seq, cfg, consts)      # (T, 16, 32)
-        prefix = associative_scan(
-            lambda a, b: torch.remainder(a + b, two_pi),
-            torch.remainder(adv, two_pi))
-        phases_seq = torch.remainder(carry.phases[None] + prefix, two_pi)
-    else:
-        phases = carry.phases
-        phase_list = []
+        hues = carry.hues
+        hue_list = []
         for t in range(T):
-            phases = phase_accumulate(phases, hues_seq[t], cfg, consts)
-            phase_list.append(phases)
-        phases_seq = torch.stack(phase_list)
+            hues = update_hues_from_stats(max_vals[t], args[t], hues, mixing,
+                                          cfg)
+            hue_list.append(hues)
+        hues_seq = torch.stack(hue_list)
+        if cfg.use_cumsum_phases:
+            # phases_t = (phases_0 + sum_{k<=t} adv_k) mod 2pi as the JAX
+            # package's mod-2pi associative scan, in its combine order.
+            two_pi = float(np.float32(2.0 * np.pi))
+            adv = phase_advance(hues_seq, cfg, consts)  # (T, 16, 32)
+            prefix = associative_scan(
+                lambda a, b: torch.remainder(a + b, two_pi),
+                torch.remainder(adv, two_pi))
+            phases_seq = torch.remainder(carry.phases[None] + prefix, two_pi)
+        else:
+            phases = carry.phases
+            phase_list = []
+            for t in range(T):
+                phases = phase_accumulate(phases, hues_seq[t], cfg, consts)
+                phase_list.append(phases)
+            phases_seq = torch.stack(phase_list)
 
     # ---- pass B: weights + ONE batched contraction (K2) + rotation ----
-    pan = live_pan_from_params(cfg, params, mixing.device)
-    pf, w_re, w_im, inv_bw = partial_weights(hues_seq, grads_seq, phases_seq,
-                                             cfg, consts)
-    flat_pf, flat_w, flat_ibw = flatten_partials(pf, w_re, w_im, inv_bw, cfg,
-                                                 pan=pan)
-    cur = contract_spectrum(flat_pf, flat_w, flat_ibw, cfg, consts)
-    rot = rotate_spectrum(cur, cfg, consts)             # (T, [ch,] F, 2)
-    if cfg.enable_filters:
-        rot = rot * filter_gain_from_params(params, consts, cfg.channels)
+    with span("vaudio.step.synth"):
+        pan = live_pan_from_params(cfg, params, mixing.device)
+        pf, w_re, w_im, inv_bw = partial_weights(hues_seq, grads_seq,
+                                                 phases_seq, cfg, consts)
+        flat_pf, flat_w, flat_ibw = flatten_partials(pf, w_re, w_im, inv_bw,
+                                                     cfg, pan=pan)
+        cur = contract_spectrum(flat_pf, flat_w, flat_ibw, cfg, consts)
+        rot = rotate_spectrum(cur, cfg, consts)         # (T, [ch,] F, 2)
+        if cfg.enable_filters:
+            rot = rot * filter_gain_from_params(params, consts, cfg.channels)
 
-    # ---- pass C1: spectrum EMA, serial, or one matrix product ----
-    if cfg.use_matmul_ema:
-        spectra = _matmul_ema(rot, carry.prev_spectrum, mixing)
-        prev = spectra[-1]
-    else:
-        prev = carry.prev_spectrum
-        m = _stream_rows(mixing, prev.dim())
-        spec_list = []
-        for t in range(T):
-            prev = prev * m + rot[t] * (1.0 - m)
-            spec_list.append(prev)
-        spectra = torch.stack(spec_list)
+        # ---- pass C1: spectrum EMA, serial, or one matrix product ----
+        if cfg.use_matmul_ema:
+            spectra = _matmul_ema(rot, carry.prev_spectrum, mixing)
+            prev = spectra[-1]
+        else:
+            prev = carry.prev_spectrum
+            m = _stream_rows(mixing, prev.dim())
+            spec_list = []
+            for t in range(T):
+                prev = prev * m + rot[t] * (1.0 - m)
+                spec_list.append(prev)
+            spectra = torch.stack(spec_list)
 
     # ---- pass C2: audio tail, one call of K4 over the chunk ----
-    signals = (irfft_from_half_dense(spectra) if cfg.use_matmul_irfft
-               else irfft_from_half(spectra))           # (T, [ch,] nfft)
-    if pod:                                             # (S, T, [ch,] nfft)
-        signals = signals.transpose(0, 1).contiguous()
-    pcm, ola_tail, rm = agc_overlap_add_chunk(
-        signals, carry.ola_tail, window, carry.running_max,
-        params["attack"], params["release"])            # (T, hop[, ch])
+    with span("vaudio.step.dsp"):
+        signals = (irfft_from_half_dense(spectra) if cfg.use_matmul_irfft
+                   else irfft_from_half(spectra))       # (T, [ch,] nfft)
+        if pod:                                         # (S, T, [ch,] nfft)
+            signals = signals.transpose(0, 1).contiguous()
+        pcm, ola_tail, rm = agc_overlap_add_chunk(
+            signals, carry.ola_tail, window, carry.running_max,
+            params["attack"], params["release"])        # (T, hop[, ch])
 
     new_carry = StepCarry(hues=hues_seq[-1], phases=phases_seq[-1],
                           prev_spectrum=prev, ola_tail=ola_tail,
@@ -245,8 +250,10 @@ def run_offline_batched(frames, cfg: AuralizerConfig,
     T = num_frames(frames)
     outs = []
     for start in range(0, T, chunk):
-        carry, out = step(carry, frames_slice(frames, start, start + chunk),
-                          params)
+        with span("vaudio.step"):
+            carry, out = step(carry,
+                              frames_slice(frames, start, start + chunk),
+                              params)
         outs.append(out)
     outs = {k: torch.cat([o[k] for o in outs]) for k in outs[0]}
     audio = outs.pop("pcm")

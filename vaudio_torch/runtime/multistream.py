@@ -53,6 +53,7 @@ from vaudio_torch.io.sources import own_frame
 from vaudio_torch.runtime.ringbuffer import make_ring_buffer
 from vaudio_torch.runtime.step import StepCarry
 from vaudio_torch.runtime.stream import StreamMetrics
+from vaudio_torch.utils.profiling import span
 
 
 def _normalize_frame(frame):
@@ -85,6 +86,13 @@ def _stack(frames: Sequence):
     if isinstance(frames[0], dict):
         return {k: np.stack([f[k] for f in frames]) for k in frames[0]}
     return np.stack(frames)
+
+
+def _stack_tick(frames: Sequence, chunked: bool):
+    """A tick's frames, one a slot (chunked: each slot's list of frames),
+    as one host array (S, ...) or (S, T, ...)."""
+    with span("vaudio.pod.stack"):
+        return _stack([_stack(b) for b in frames] if chunked else frames)
 
 
 def _is_sharded(x) -> bool:
@@ -978,8 +986,9 @@ class MultiStreamAuralizer:
         """A dispatch's PCM on the host (waits for the device), a mesh's
         shards joined in slot order."""
         pcm = out["pcm"]
-        return pcm.gather("cpu").numpy() if _is_sharded(pcm) \
-            else pcm.cpu().numpy()
+        with span("vaudio.readback"):
+            return pcm.gather("cpu").numpy() if _is_sharded(pcm) \
+                else pcm.cpu().numpy()
 
     def _all_inactive(self) -> bool:
         """True when no slot has a live source."""
@@ -990,36 +999,37 @@ class MultiStreamAuralizer:
         from actual source frames; black batch-padding rows are dropped —
         a slot that ends mid-chunk, or is re-armed mid-chunk, only ever
         hears its own frames)."""
-        out, t0, masks = pending
-        pcm = self._fetch_pcm(out)         # waits for the device
-        hop = self.cfg.hop_size * self.cfg.channels
-        pcm = pcm.reshape(len(masks), -1, hop)
-        for i, mask in enumerate(masks):
-            for t, is_real in enumerate(mask):
-                if is_real:
-                    self.rings[i].write(pcm[i, t])
-                    if self.observe:
-                        # Waveform view state: the slot's latest real hop
-                        # (the previousSignal surface,
-                        # Views/TimeDomainFrameView.swift:15-51).
-                        row = pcm[i, t]
-                        if self.cfg.channels > 1:
-                            row = row.reshape(-1, self.cfg.channels)
-                        self.last_pcm[i] = row
-        latency_ms = (time.monotonic() - t0) * 1000.0
-        n_frames = int(sum(sum(m) for m in masks))
-        self.metrics.record(latency_ms, n_frames)
-        if self._metrics_log is not None:
-            if self._metrics_fh is None:
-                self._metrics_fh = open(self._metrics_log, "a")
-            self._metrics_fh.write(json.dumps({
-                "t": time.time(),
-                "frames": n_frames,
-                "latency_ms": round(latency_ms, 3),
-                "slots": [self.stream_metrics(i)
-                          for i in range(self.n_streams)],
-            }) + "\n")
-            self._metrics_fh.flush()
+        with span("vaudio.pod.flush"):
+            out, t0, masks = pending
+            pcm = self._fetch_pcm(out)         # waits for the device
+            hop = self.cfg.hop_size * self.cfg.channels
+            pcm = pcm.reshape(len(masks), -1, hop)
+            for i, mask in enumerate(masks):
+                for t, is_real in enumerate(mask):
+                    if is_real:
+                        self.rings[i].write(pcm[i, t])
+                        if self.observe:
+                            # Waveform view state: the slot's latest real hop
+                            # (the previousSignal surface,
+                            # Views/TimeDomainFrameView.swift:15-51).
+                            row = pcm[i, t]
+                            if self.cfg.channels > 1:
+                                row = row.reshape(-1, self.cfg.channels)
+                            self.last_pcm[i] = row
+            latency_ms = (time.monotonic() - t0) * 1000.0
+            n_frames = int(sum(sum(m) for m in masks))
+            self.metrics.record(latency_ms, n_frames)
+            if self._metrics_log is not None:
+                if self._metrics_fh is None:
+                    self._metrics_fh = open(self._metrics_log, "a")
+                self._metrics_fh.write(json.dumps({
+                    "t": time.time(),
+                    "frames": n_frames,
+                    "latency_ms": round(latency_ms, 3),
+                    "slots": [self.stream_metrics(i)
+                              for i in range(self.n_streams)],
+                }) + "\n")
+                self._metrics_fh.flush()
 
     def _producer_loop(self) -> None:
         T = self.chunk_frames
@@ -1056,8 +1066,9 @@ class MultiStreamAuralizer:
                         raise ValueError(err)
                     self._carry_checked = True
             params = self._stack_params()
-            batch = self._shard_put(stacked)
-            with self._carry_lock:
+            with span("vaudio.ingest.frames"):
+                batch = self._shard_put(stacked)
+            with self._carry_lock, span("vaudio.step"):
                 self._carry, out = self._step(self._carry, batch, params)
             if pending is not None:
                 self._flush(pending)
@@ -1103,7 +1114,7 @@ class MultiStreamAuralizer:
                         for i in range(self.n_streams):
                             chunk_bufs[i].extend([self._zeros] * pad)
                             chunk_mask[i].extend([False] * pad)
-                        dispatch(_stack([_stack(b) for b in chunk_bufs]),
+                        dispatch(_stack_tick(chunk_bufs, chunked=True),
                                  chunk_t0 or time.monotonic(),
                                  [list(m) for m in chunk_mask])
                     if pending is not None:
@@ -1164,55 +1175,57 @@ class MultiStreamAuralizer:
                     time.sleep(next_deadline - now)
                 next_deadline = max(next_deadline + frame_period,
                                     time.monotonic())
-            tick = self._next_batch()
-            if tick is None:
-                # No dispatch this tick (every source died yielding zero
-                # frames, or every armed slot is an idle push slot
-                # between frames): flush the in-flight result — normally
-                # flushed by the NEXT dispatch, which may be a long time
-                # coming — and don't spin the loop hot.
-                if pending is not None:
-                    self._flush(pending)
-                    pending = None
-                time.sleep(0.001)
-                continue
-            frames, real = tick
-            if self.observe:
-                # Input-preview state (the CameraPreview surface,
-                # Views/CameraPreview.swift:11-51): render the small RGB
-                # preview NOW — frames may be zero-copy pool views only
-                # valid within this tick; the preview strides+copies.
-                # Throttled per slot (see preview_interval).
-                from vaudio_torch.utils.render import input_preview_image
-                now = time.monotonic()
+            with span("vaudio.pod.tick"):
+                with span("vaudio.pod.sources"):
+                    tick = self._next_batch()
+                if tick is None:
+                    # No dispatch this tick (every source died yielding zero
+                    # frames, or every armed slot is an idle push slot
+                    # between frames): flush the in-flight result — normally
+                    # flushed by the NEXT dispatch, which may be a long time
+                    # coming — and don't spin the loop hot.
+                    if pending is not None:
+                        self._flush(pending)
+                        pending = None
+                    time.sleep(0.001)
+                    continue
+                frames, real = tick
+                if self.observe:
+                    # Input-preview state (the CameraPreview surface,
+                    # Views/CameraPreview.swift:11-51): render the small RGB
+                    # preview NOW — frames may be zero-copy pool views only
+                    # valid within this tick; the preview strides+copies.
+                    # Throttled per slot (see preview_interval).
+                    from vaudio_torch.utils.render import input_preview_image
+                    now = time.monotonic()
+                    for i in range(self.n_streams):
+                        if real[i] and (now - self._preview_t[i]
+                                        >= self.preview_interval):
+                            self._preview_t[i] = now
+                            try:
+                                self.last_preview[i] = \
+                                    input_preview_image(frames[i])
+                            except Exception:
+                                pass   # a view must never kill the producer
+                if T == 1:
+                    # _stack copies the (possibly zero-copy-borrowed) frames
+                    # within the tick, inside the sources' lag-2 window.
+                    dispatch(_stack_tick(frames, chunked=False),
+                             time.monotonic(), [[r] for r in real])
+                    continue
+                if not any(chunk_bufs):
+                    chunk_t0 = time.monotonic()
                 for i in range(self.n_streams):
-                    if real[i] and \
-                            now - self._preview_t[i] >= self.preview_interval:
-                        self._preview_t[i] = now
-                        try:
-                            self.last_preview[i] = \
-                                input_preview_image(frames[i])
-                        except Exception:
-                            pass   # a view must never kill the producer
-            if T == 1:
-                # _stack copies the (possibly zero-copy-borrowed) frames
-                # within the tick, inside the sources' lag-2 window.
-                dispatch(_stack(frames), time.monotonic(),
-                         [[r] for r in real])
-                continue
-            if not any(chunk_bufs):
-                chunk_t0 = time.monotonic()
-            for i in range(self.n_streams):
-                # Chunk buffers span ticks: borrowed zero-copy views must
-                # be owned here (same invariant as runtime.stream).
-                chunk_bufs[i].append(own_frame(frames[i]))
-                chunk_mask[i].append(real[i])
-            if len(chunk_bufs[0]) >= T:
-                stacked = _stack([_stack(buf) for buf in chunk_bufs])
-                dispatch(stacked, chunk_t0 or time.monotonic(),
-                         [list(m) for m in chunk_mask])
-                chunk_bufs = [[] for _ in range(self.n_streams)]
-                chunk_mask = [[] for _ in range(self.n_streams)]
+                    # Chunk buffers span ticks: borrowed zero-copy views must
+                    # be owned here (same invariant as runtime.stream).
+                    chunk_bufs[i].append(own_frame(frames[i]))
+                    chunk_mask[i].append(real[i])
+                if len(chunk_bufs[0]) >= T:
+                    dispatch(_stack_tick(chunk_bufs, chunked=True),
+                             chunk_t0 or time.monotonic(),
+                             [list(m) for m in chunk_mask])
+                    chunk_bufs = [[] for _ in range(self.n_streams)]
+                    chunk_mask = [[] for _ in range(self.n_streams)]
 
         # Trailing partial chunk: pad with black frames to the static
         # chunk shape; only real hops are written.
@@ -1221,8 +1234,8 @@ class MultiStreamAuralizer:
             for i in range(self.n_streams):
                 chunk_bufs[i].extend([self._zeros] * pad)
                 chunk_mask[i].extend([False] * pad)
-            stacked = _stack([_stack(buf) for buf in chunk_bufs])
-            dispatch(stacked, chunk_t0 or time.monotonic(),
+            dispatch(_stack_tick(chunk_bufs, chunked=True),
+                     chunk_t0 or time.monotonic(),
                      [list(m) for m in chunk_mask])
         if pending is not None and not self._stop_event.is_set():
             self._flush(pending)

@@ -20,6 +20,7 @@ from vaudio_torch.dsp.core import (agc_normalize, hann_window_norm,
 from vaudio_torch.ops.audio_kernel import agc_overlap_add
 from vaudio_torch.synth.spectrum import (SynthConstants, build_spectrum,
                                          phase_accumulate)
+from vaudio_torch.utils.profiling import span
 from vaudio_torch.vision.features import extract_features
 
 
@@ -83,6 +84,13 @@ def params_to_device(params: Optional[Dict[str, Any]], cfg: AuralizerConfig,
     copied; f32 tensors already on ``device`` pass through."""
     if params is None:
         params = default_params(cfg)
+    if all(isinstance(v, torch.Tensor) for v in params.values()):
+        return _params_as_f32(params, device)
+    with span("vaudio.ingest.params"):
+        return _params_as_f32(params, device)
+
+
+def _params_as_f32(params: Dict[str, Any], device):
     return {k: torch.as_tensor(
                 v if isinstance(v, torch.Tensor) else np.asarray(v, np.float32),
                 dtype=torch.float32, device=device)
@@ -136,12 +144,16 @@ def frame_step(carry: StepCarry, frame, params: Dict[str, Any],
     own params, per-stream peaks in the audio tail (K4 with its stream
     axis), and every result leading with S."""
     mixing = params["spectrum_mixing"]
-    hues, grads = extract_features(frame, carry.hues, mixing, cfg)
-    phases = phase_accumulate(carry.phases, hues, cfg, consts)
-    spectrum = build_spectrum(hues, grads, phases, carry.prev_spectrum,
-                              mixing, cfg, consts, filter_params=params)
-    pcm, ola_tail, running_max = synth_audio(
-        spectrum, carry.ola_tail, carry.running_max, params, cfg, window)
+    with span("vaudio.step.vision"):
+        hues, grads = extract_features(frame, carry.hues, mixing, cfg)
+    with span("vaudio.step.synth"):
+        phases = phase_accumulate(carry.phases, hues, cfg, consts)
+        spectrum = build_spectrum(hues, grads, phases, carry.prev_spectrum,
+                                  mixing, cfg, consts, filter_params=params)
+    with span("vaudio.step.dsp"):
+        pcm, ola_tail, running_max = synth_audio(
+            spectrum, carry.ola_tail, carry.running_max, params, cfg,
+            window)
     new_carry = StepCarry(hues=hues, phases=phases, prev_spectrum=spectrum,
                           ola_tail=ola_tail, running_max=running_max)
     out: Dict[str, Any] = {"pcm": pcm}
@@ -222,6 +234,14 @@ def frames_to_device(frames, device):
     and any other type becoming f32, or a dict of YUV planes, each moved
     as it is."""
     frames = check_frames(frames)
+    first = frames["y"] if isinstance(frames, dict) else frames
+    if first.device.type != "cpu" or torch.device(device).type == "cpu":
+        return _frames_to(frames, device)
+    with span("vaudio.ingest.frames"):                  # host to card
+        return _frames_to(frames, device)
+
+
+def _frames_to(frames, device):
     if isinstance(frames, dict):
         return {k: v.to(device) for k, v in frames.items()}
     if frames.dtype != torch.uint8:

@@ -30,6 +30,7 @@ import torch
 from vaudio_torch.config import AuralizerConfig, LiveParams
 from vaudio_torch.io.sources import BorrowedFrame, own_frame
 from vaudio_torch.runtime.ringbuffer import make_ring_buffer
+from vaudio_torch.utils.profiling import span
 
 
 class StreamMetrics:
@@ -335,12 +336,13 @@ class StreamingAuralizer:
         engine's device.  On the CPU ``torch.as_tensor`` shares host
         memory, so a borrowed (pool) frame is copied; to the card, a
         pageable copy has consumed the host memory when it returns."""
-        if isinstance(frame, dict):
-            return {k: self._to_device(v) for k, v in frame.items()}
-        dev = self.engine.device
-        if dev.type == "cpu" and isinstance(frame, BorrowedFrame):
-            frame = np.array(frame)
-        return torch.as_tensor(np.asarray(frame)).to(dev)
+        with span("vaudio.ingest.frames"):
+            if isinstance(frame, dict):
+                return {k: self._to_device(v) for k, v in frame.items()}
+            dev = self.engine.device
+            if dev.type == "cpu" and isinstance(frame, BorrowedFrame):
+                frame = np.array(frame)
+            return torch.as_tensor(np.asarray(frame)).to(dev)
 
     def _producer_loop(self, frames: Iterator[np.ndarray]) -> None:
         frame_period = 1.0 / self.cfg.video_fps
@@ -358,7 +360,8 @@ class StreamingAuralizer:
 
         def flush(pending):
             out, t_capture, n_hops = pending
-            pcm = out["pcm"].cpu().numpy()      # waits for the device
+            with span("vaudio.readback"):
+                pcm = out["pcm"].cpu().numpy()  # waits for the device
             hop = self.cfg.hop_size * self.cfg.channels
             pcm = pcm.reshape(n_hops, hop)      # stereo: interleaved
             if drop_tail.is_set():
@@ -384,7 +387,8 @@ class StreamingAuralizer:
                 if drop_tail.is_set():
                     continue          # discard without reading
                 try:
-                    flush(item)
+                    with span("vaudio.stream.flush"):
+                        flush(item)
                 except BaseException as e:   # surfaced by the producer
                     drain_error.append(e)
                     drop_tail.set()   # never deadlock the producer's put
@@ -393,42 +397,46 @@ class StreamingAuralizer:
         drain_thread.start()
 
         def dispatch(frames_np, t_capture):
-            if self.debug:
-                # A copy: a zero-copy source's view is recycled two
-                # iterations later, and last_frame outlives that.
-                last = frames_np[-1]
-                self.last_frame = (
-                    {k: np.array(v) for k, v in last.items()}
-                    if isinstance(last, dict) else np.array(last))
-            params_arrays = self.engine.params_arrays(self.params)
-            if len(frames_np) == 1:
-                step, frames_dev = self._step, self._to_device(frames_np[0])
-            else:
-                if isinstance(frames_np[0], dict):   # planar YUV chunks
-                    batch = {k: np.stack([f[k] for f in frames_np])
-                             for k in frames_np[0]}
+            with span("vaudio.stream.dispatch"):
+                if self.debug:
+                    # A copy: a zero-copy source's view is recycled two
+                    # iterations later, and last_frame outlives that.
+                    last = frames_np[-1]
+                    self.last_frame = (
+                        {k: np.array(v) for k, v in last.items()}
+                        if isinstance(last, dict) else np.array(last))
+                params_arrays = self.engine.params_arrays(self.params)
+                if len(frames_np) == 1:
+                    step = self._step
+                    frames_dev = self._to_device(frames_np[0])
                 else:
-                    batch = np.stack(frames_np)
-                step, frames_dev = self._chunk_step, self._to_device(batch)
-            with self._carry_lock:
-                if self._carry is None:
-                    # A frame-sized carry: built from the first frame, and
-                    # again after a resolution change; under the lock, so a
-                    # concurrent restore (POST /state.npz) is never
-                    # overwritten by a fresh carry.
-                    self._carry = self.engine.init_carry(frames_np[0])
-                elif not self._carry_checked:
-                    # A restored frame-sized carry, checked against the
-                    # first frame it meets: a clear error instead of a
-                    # shape failure inside the step.
-                    err = self.engine.carry_mismatch(self._carry,
-                                                     frames_np[0])
-                    if err is not None:
-                        raise ValueError(err)
-                self._carry_checked = True
-                self._carry, out = step(self._carry, frames_dev,
-                                        params_arrays)
-            pending_q.put((out, t_capture, len(frames_np)))
+                    if isinstance(frames_np[0], dict):   # planar YUV chunks
+                        batch = {k: np.stack([f[k] for f in frames_np])
+                                 for k in frames_np[0]}
+                    else:
+                        batch = np.stack(frames_np)
+                    step, frames_dev = self._chunk_step, self._to_device(batch)
+                with self._carry_lock:
+                    if self._carry is None:
+                        # A frame-sized carry: built from the first frame, and
+                        # again after a resolution change; under the lock, so a
+                        # concurrent restore (POST /state.npz) is never
+                        # overwritten by a fresh carry.
+                        self._carry = self.engine.init_carry(frames_np[0])
+                    elif not self._carry_checked:
+                        # A restored frame-sized carry, checked against the
+                        # first frame it meets: a clear error instead of a
+                        # shape failure inside the step.
+                        err = self.engine.carry_mismatch(self._carry,
+                                                         frames_np[0])
+                        if err is not None:
+                            raise ValueError(err)
+                    self._carry_checked = True
+                    with span("vaudio.step"):
+                        self._carry, out = step(self._carry, frames_dev,
+                                                params_arrays)
+                with span("vaudio.stream.enqueue"):
+                    pending_q.put((out, t_capture, len(frames_np)))
 
         frames_it = iter(frames)
         while True:
@@ -442,7 +450,8 @@ class StreamingAuralizer:
                     dispatch([f], chunk_t0 or time.monotonic())
                 chunk_buf = []
             try:
-                frame = next(frames_it)
+                with span("vaudio.stream.source"):
+                    frame = next(frames_it)
             except StopIteration:
                 break
             if self.realtime:
