@@ -619,6 +619,10 @@ def test_public_names_equal_jax():
             assert inspect.signature(ours) == inspect.signature(theirs)
 
 
+#: Keys of the port's metrics_dict that the JAX pod lacks.
+PORT_METRICS = ("staging_allocs", "staging_reuses")
+
+
 def _script(mod, url):
     """One script of pod calls through client module ``mod`` against the
     panel at ``url``: [(call, status, sorted JSON keys or a summary)]."""
@@ -704,7 +708,12 @@ def test_crossed_clients_see_the_same_answers(client, server):
         finally:
             srv.stop()
             p.stop()
-    assert answers[0] == answers[1]
+    want = answers[1]
+    if server == "port":
+        # The port's pod reports its tick staging counters besides.
+        want = [(a[0], a[1], sorted(a[2] + list(PORT_METRICS)))
+                if a[0] == "metrics" else a for a in want]
+    assert answers[0] == want
     statuses = {a[0]: a[1] for a in answers[0] if len(a) == 3}
     assert statuses["one_slot_pan"] == 409
     assert statuses["set_params_bad"] == statuses["load_state_bad"] == 400

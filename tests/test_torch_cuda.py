@@ -939,6 +939,29 @@ def test_pod_on_the_card_equals_single_stream_runs(dev, chunk):
     p.stop()
 
 
+def test_pod_staging_on_the_card_is_pinned(dev):
+    """The pod's tick staging buffer on the card is page-locked, made once
+    and reused; 4 ticks of an S = 2 pod at 1080p equal the 2 single-stream
+    runs on the card bit for bit."""
+    from vaudio_torch.runtime import MultiStreamAuralizer
+    from vaudio_torch.runtime.engine import AuralizerEngine
+    cfg = AuralizerConfig(channels=2, use_pallas=True,
+                          use_pallas_vision=True, ring_buffer_frames=32)
+    clips = [structured_frames(50 + s, 4, 1080, 1920) for s in range(2)]
+    p = pod_run(MultiStreamAuralizer(cfg, n_streams=2,
+                                     engine=AuralizerEngine(cfg)), clips)
+    m = p.metrics_dict()
+    assert (m["staging_allocs"], m["staging_reuses"], m["dispatches"]) \
+        == (1, 3, 4)
+    buf = p._staging._bufs[None]
+    assert buf.is_pinned() and tuple(buf.shape) == (2, 1080, 1920, 3)
+    for s, clip in enumerate(clips):
+        ref, _, _ = step.run_offline(clip, cfg, device=dev)
+        np.testing.assert_array_equal(p.pull(s, 4 * 2048 * 2),
+                                      ref.cpu().numpy().reshape(-1))
+    p.stop()
+
+
 def test_ortho_pod_on_the_card_equals_model_steps(dev):
     """OrthoModes in a pod of 2 slots in chunks of 4 on the card: K1 and K4
     once a tick; each slot equal to the model's chunk steps bit for bit."""

@@ -62,7 +62,8 @@ from vaudio_torch.parallel.multihost import (host_group,
                                              make_multihost_mesh,
                                              process_count)
 from vaudio_torch.parallel.sharding import (StreamMesh, _engine_step,
-                                            process_index, shard_put)
+                                            _tree_map, process_index,
+                                            shard_put)
 from vaudio_torch.runtime.multistream import (MultiStreamAuralizer,
                                               _frame_sig, _normalize_frame,
                                               _zeros_like_frame)
@@ -163,6 +164,12 @@ class MultiHostPod(MultiStreamAuralizer):
         """Local rows (leading axis = n_local) over this process's stream
         shards of the process-spanning mesh."""
         return shard_put(self._gmesh, tree)
+
+    def _put_frames(self, staged):
+        """NumPy views of the tick's staging buffer over this process's
+        stream shards (:func:`shard_put` copies each shard synchronously,
+        so the batch never shares the buffer's memory)."""
+        return self._shard_put(_tree_map(torch.Tensor.numpy, staged))
 
     def _barrier(self) -> None:
         """The construction barrier: every process contributes (its stream

@@ -11,8 +11,9 @@ batched device step per tick — the PyTorch port of
   stateless per-frame stages fold the S·T frames of a tick into one frame
   axis, the serial recurrences keep S as a batch axis, and the audio
   tail's kernel K4 runs one cluster a stream, so every kernel on the path
-  launches once a tick whatever S is.  The tick's frames go to the device
-  in one host->device copy of their stacked array.  With a ``mesh``
+  launches once a tick whatever S is.  The tick's frames are stacked into
+  one reused host staging buffer (page-locked when the engine runs on
+  CUDA) and go to the device in one host->device copy.  With a ``mesh``
   (:class:`vaudio_torch.parallel.StreamMesh`) the streams are sharded over
   its stream rows, one copy and one batched step a shard (the DP/TP mesh
   steps of :mod:`vaudio_torch.parallel.sharding`);
@@ -80,19 +81,60 @@ def _zeros_like_frame(frame):
     return np.zeros_like(frame)
 
 
-def _stack(frames: Sequence):
-    """Stack a list of frames (arrays or planar-YUV dicts) along a new
-    leading axis (a copy: borrowed pool views are consumed here)."""
-    if isinstance(frames[0], dict):
-        return {k: np.stack([f[k] for f in frames]) for k in frames[0]}
-    return np.stack(frames)
+def _plane(frame, key: Optional[str]):
+    """Plane ``key`` of a planar-YUV frame (None: the frame itself)."""
+    return frame if key is None else frame[key]
 
 
-def _stack_tick(frames: Sequence, chunked: bool):
-    """A tick's frames, one a slot (chunked: each slot's list of frames),
-    as one host array (S, ...) or (S, T, ...)."""
-    with span("vaudio.pod.stack"):
-        return _stack([_stack(b) for b in frames] if chunked else frames)
+def _host_dtype(dtype) -> torch.dtype:
+    """The torch dtype of a NumPy dtype."""
+    return torch.from_numpy(np.empty(0, dtype)).dtype
+
+
+class _TickStaging:
+    """The host staging buffer of a tick's frames, one buffer a leaf of the
+    tick's stacked signature: the (S, ...) frames, a chunked pod's (S, T,
+    ...), one a plane of a planar-YUV dict.  Page-locked when ``pinned``
+    (the engine on CUDA: the tick's copy to the card is then one direct
+    DMA); made at the first tick and re-made only when the signature
+    changes (a resize, a new frame contract).  Only the pod's producer
+    thread stacks, and the tick's put copies out of the buffer before the
+    next tick rewrites it."""
+
+    def __init__(self, pinned: bool):
+        self.pinned = pinned
+        self.allocs = 0        # buffers (re)made
+        self.reuses = 0        # ticks stacked into a kept buffer
+        self._sig = None
+        self._bufs: Dict[Optional[str], torch.Tensor] = {}
+
+    def stack(self, frames: Sequence, chunked: bool):
+        """A tick's frames, one a slot (chunked: each slot's list of
+        frames), written into the buffer (a copy: borrowed pool views are
+        consumed here).  Returns the buffer's tensor, or a dict of them a
+        plane."""
+        with span("vaudio.pod.stack"):
+            first = frames[0][0] if chunked else frames[0]
+            lead = ((len(frames), len(frames[0])) if chunked
+                    else (len(frames),))
+            sig = (lead, _frame_sig(first))
+            if sig == self._sig:
+                self.reuses += 1
+            else:
+                planes = first if isinstance(first, dict) else {None: first}
+                self._bufs = {k: torch.empty(
+                    lead + v.shape, dtype=_host_dtype(v.dtype),
+                    pin_memory=self.pinned) for k, v in planes.items()}
+                self._sig = sig
+                self.allocs += 1
+            for k, buf in self._bufs.items():
+                out = buf.numpy()
+                if chunked:
+                    for row, slot in zip(out, frames):
+                        np.stack([_plane(f, k) for f in slot], out=row)
+                else:
+                    np.stack([_plane(f, k) for f in frames], out=out)
+        return self._bufs[None] if None in self._bufs else dict(self._bufs)
 
 
 def _is_sharded(x) -> bool:
@@ -317,6 +359,11 @@ class MultiStreamAuralizer:
         self._error: Optional[BaseException] = None
         self._template_sig = None
         self._zeros = None
+        #: The tick's host staging buffer (page-locked for a CUDA engine)
+        #: and its counters, ``staging_allocs`` / ``staging_reuses`` in
+        #: :meth:`metrics_dict`.
+        self._staging = _TickStaging(
+            pinned=torch.device(engine.device).type == "cuda")
         self._metrics_log = metrics_log
         self._metrics_fh = None
         #: When True (set by :meth:`serve` / PodServer.start, reset by
@@ -366,6 +413,20 @@ class MultiStreamAuralizer:
             dev = self.engine.device
             return _tree_map(lambda x: torch.as_tensor(x).to(dev), tree)
         return shard_put(self._mesh, tree)
+
+    def _put_frames(self, staged):
+        """The tick's staged frames as the step's batch, never sharing the
+        staging buffer's memory: one synchronous copy of the buffer's
+        tensors to the engine's device (complete when this returns, so
+        the next tick may rewrite the buffer; a copy on the CPU too, where
+        ``.to`` alone would hand back the buffer).  Under a mesh, NumPy
+        views of the buffer to :meth:`_shard_put`, which copies each shard
+        synchronously."""
+        from vaudio_torch.parallel.sharding import _tree_map
+        if self._mesh is None:
+            dev = self.engine.device
+            return _tree_map(lambda t: t.to(dev, copy=True), staged)
+        return self._shard_put(_tree_map(torch.Tensor.numpy, staged))
 
     def _local_carry(self):
         """The carry as one tree (a mesh's shards joined on the host);
@@ -887,6 +948,10 @@ class MultiStreamAuralizer:
             "dispatches": m.dispatches,
             "leases_reaped": self.leases_reaped,
             "auto_shrinks": self.auto_shrinks,
+            # How often the tick's staging buffer was (re)made, and how
+            # often a tick stacked into the kept one.
+            "staging_allocs": self._staging.allocs,
+            "staging_reuses": self._staging.reuses,
             # Placement signals: current free slots, the growth headroom
             # to the cap, and the pod's static frame contract.
             "free_slots": len(self.free_slots()),
@@ -1067,7 +1132,7 @@ class MultiStreamAuralizer:
                     self._carry_checked = True
             params = self._stack_params()
             with span("vaudio.ingest.frames"):
-                batch = self._shard_put(stacked)
+                batch = self._put_frames(stacked)
             with self._carry_lock, span("vaudio.step"):
                 self._carry, out = self._step(self._carry, batch, params)
             if pending is not None:
@@ -1114,7 +1179,7 @@ class MultiStreamAuralizer:
                         for i in range(self.n_streams):
                             chunk_bufs[i].extend([self._zeros] * pad)
                             chunk_mask[i].extend([False] * pad)
-                        dispatch(_stack_tick(chunk_bufs, chunked=True),
+                        dispatch(self._staging.stack(chunk_bufs, chunked=True),
                                  chunk_t0 or time.monotonic(),
                                  [list(m) for m in chunk_mask])
                     if pending is not None:
@@ -1208,9 +1273,10 @@ class MultiStreamAuralizer:
                             except Exception:
                                 pass   # a view must never kill the producer
                 if T == 1:
-                    # _stack copies the (possibly zero-copy-borrowed) frames
-                    # within the tick, inside the sources' lag-2 window.
-                    dispatch(_stack_tick(frames, chunked=False),
+                    # The stack copies the (possibly zero-copy-borrowed)
+                    # frames into the staging buffer within the tick, inside
+                    # the sources' lag-2 window.
+                    dispatch(self._staging.stack(frames, chunked=False),
                              time.monotonic(), [[r] for r in real])
                     continue
                 if not any(chunk_bufs):
@@ -1221,7 +1287,7 @@ class MultiStreamAuralizer:
                     chunk_bufs[i].append(own_frame(frames[i]))
                     chunk_mask[i].append(real[i])
                 if len(chunk_bufs[0]) >= T:
-                    dispatch(_stack_tick(chunk_bufs, chunked=True),
+                    dispatch(self._staging.stack(chunk_bufs, chunked=True),
                              chunk_t0 or time.monotonic(),
                              [list(m) for m in chunk_mask])
                     chunk_bufs = [[] for _ in range(self.n_streams)]
@@ -1234,7 +1300,7 @@ class MultiStreamAuralizer:
             for i in range(self.n_streams):
                 chunk_bufs[i].extend([self._zeros] * pad)
                 chunk_mask[i].extend([False] * pad)
-            dispatch(_stack_tick(chunk_bufs, chunked=True),
+            dispatch(self._staging.stack(chunk_bufs, chunked=True),
                      chunk_t0 or time.monotonic(),
                      [list(m) for m in chunk_mask])
         if pending is not None and not self._stop_event.is_set():
