@@ -101,6 +101,8 @@ NESTING = {
     "sonify": [("vaudio.step", "vaudio.sonify"),
                ("vaudio.readback", "vaudio.sonify"),
                ("vaudio.step.vision", "vaudio.step"),
+               ("vaudio.vision.pool", "vaudio.step.vision"),
+               ("vaudio.vision.stats", "vaudio.step.vision"),
                ("vaudio.step.synth", "vaudio.step"),
                ("vaudio.step.dsp", "vaudio.step")],
     "stream": [("vaudio.stream.source", None),
@@ -110,6 +112,8 @@ NESTING = {
                ("vaudio.stream.enqueue", "vaudio.stream.dispatch"),
                ("vaudio.ingest.params", "vaudio.step"),
                ("vaudio.step.vision", "vaudio.step"),
+               ("vaudio.vision.pool", "vaudio.step.vision"),
+               ("vaudio.vision.stats", "vaudio.step.vision"),
                ("vaudio.step.synth", "vaudio.step"),
                ("vaudio.step.dsp", "vaudio.step"),
                ("vaudio.stream.flush", None),
@@ -121,6 +125,8 @@ NESTING = {
             ("vaudio.step", "vaudio.pod.tick"),
             ("vaudio.ingest.params", "vaudio.step"),
             ("vaudio.step.vision", "vaudio.step"),
+            ("vaudio.vision.pool", "vaudio.step.vision"),
+            ("vaudio.vision.stats", "vaudio.step.vision"),
             ("vaudio.step.synth", "vaudio.step"),
             ("vaudio.step.dsp", "vaudio.step"),
             ("vaudio.pod.flush", "vaudio.pod.tick"),
@@ -158,6 +164,37 @@ def test_spans_nest_on_their_threads(path, tmp_path):
         producer = threads["vaudio.pod.tick"]
         assert len(producer) == 1 and main not in producer
         assert threads["vaudio.pod.flush"] == producer
+
+
+@pytest.mark.parametrize("path", ["sonify", "stream"])
+def test_vision_spans_once_per_frame_stats_call(path, tmp_path,
+                                                monkeypatch):
+    """Each ``frame_stats`` call (the chunk path's pass A, the frame
+    path's vision stage) records one ``vaudio.vision.pool`` and then one
+    ``vaudio.vision.stats``, both inside its ``vaudio.step.vision``."""
+    from vaudio_torch.runtime import chunked
+    from vaudio_torch.vision import features
+    calls = []
+    frame_stats = features.frame_stats
+
+    def counted(*args, **kwargs):
+        calls.append(threading.get_native_id())
+        return frame_stats(*args, **kwargs)
+    monkeypatch.setattr(features, "frame_stats", counted)
+    monkeypatch.setattr(chunked, "frame_stats", counted)
+    with _profile() as prof:
+        RUNS[path]()
+    spans = _spans(prof, tmp_path)
+    vision = _named(spans, "vaudio.step.vision")
+    assert calls and len(vision) == len(calls)
+    pools = _named(spans, "vaudio.vision.pool")
+    stats = _named(spans, "vaudio.vision.stats")
+    assert len(pools) == len(stats) == len(calls)
+    for outer in vision:
+        pool, = [s for s in pools if _inside(s, outer)]
+        stat, = [s for s in stats if _inside(s, outer)]
+        assert pool[3] <= stat[2] + SLACK_US
+    assert sorted(s[0] for s in pools) == sorted(calls)
 
 
 @pytest.mark.parametrize("path", sorted(RUNS))

@@ -31,6 +31,11 @@ import torch.autograd.profiler as _autograd_profiler
 #: * ``vaudio.step.vision``, ``vaudio.step.synth``, ``vaudio.step.dsp``:
 #:   the flagship step's three stages (``frame_step``; ``chunk_pipeline``'s
 #:   pass A, passes B and C1, pass C2).
+#: * ``vaudio.vision.pool``: the mip pool of one ``frame_stats`` call
+#:   (kernel K1 on the card), inside ``vaudio.step.vision``.
+#: * ``vaudio.vision.stats``: what follows it in that call: K3 where the
+#:   switch and its size gate take the mip, else the unfused stages (HSI,
+#:   the tiled histogram, the stencils, the statistics).
 #: * ``vaudio.readback``: waiting for the device and copying PCM back.
 #: * ``vaudio.stream.source``: the live producer waiting for its source.
 #: * ``vaudio.stream.dispatch``: one host dispatch of a frame or chunk.
@@ -46,7 +51,8 @@ import torch.autograd.profiler as _autograd_profiler
 #: * ``vaudio.pod.flush``: readback and ring writes of the previous tick.
 SPANS = ("vaudio.sonify", "vaudio.ingest.frames", "vaudio.ingest.params",
          "vaudio.step", "vaudio.step.vision", "vaudio.step.synth",
-         "vaudio.step.dsp", "vaudio.readback", "vaudio.stream.source",
+         "vaudio.step.dsp", "vaudio.vision.pool", "vaudio.vision.stats",
+         "vaudio.readback", "vaudio.stream.source",
          "vaudio.stream.dispatch", "vaudio.stream.enqueue",
          "vaudio.stream.flush", "vaudio.pod.tick", "vaudio.pod.sources",
          "vaudio.pod.stack", "vaudio.pod.flush")

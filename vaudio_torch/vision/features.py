@@ -16,6 +16,7 @@ import torch
 
 from vaudio_torch.config import AuralizerConfig
 from vaudio_torch.ops import pool_kernel, vision_kernel
+from vaudio_torch.utils.profiling import span
 
 _TWO_PI = float(np.float32(2.0 * np.pi))
 
@@ -567,25 +568,30 @@ def frame_stats(frames, cfg: AuralizerConfig,
     ``compute_debug_maps`` bypasses K3, as the JAX package does, and adds a
     third result, the debug dict: ``histogram``, the rotated
     (T, wm, hm, 4) mode packs ``hue_map``, ``saturation_map`` and
-    ``intensity_map``, and ``mip_hsi`` (T, hm, wm, 3)."""
-    mip = frame_mip_planes(frames, cfg)
-    if (not compute_debug_maps
-            and use_vision_kernel(mip.shape[-2], mip.shape[-1], cfg)):
-        return vision_kernel.vision_stats(mip.contiguous(), cfg)
-    h, s, i = rgb_to_hsi_planes(mip[:, 0], mip[:, 1], mip[:, 2],
-                                fast_acos=cfg.fast_hue_acos)
-    hist = hue_histogram_planes(h, s, i, cfg)
-    imodes = feature_stencil_plane(i)
-    grads = cell_gradient_stats_planes(imodes, cfg)
-    if not compute_debug_maps:
-        return hist, grads
-    return hist, grads, {
-        "histogram": hist,
-        "hue_map": _rot_pack(feature_stencil_plane(h)),
-        "saturation_map": _rot_pack(feature_stencil_plane(s)),
-        "intensity_map": _rot_pack(imodes),
-        "mip_hsi": torch.stack([h, s, i], dim=-1),
-    }
+    ``intensity_map``, and ``mip_hsi`` (T, hm, wm, 3).
+
+    The pool runs in the span ``vaudio.vision.pool``, the rest in
+    ``vaudio.vision.stats``."""
+    with span("vaudio.vision.pool"):
+        mip = frame_mip_planes(frames, cfg)
+    with span("vaudio.vision.stats"):
+        if (not compute_debug_maps
+                and use_vision_kernel(mip.shape[-2], mip.shape[-1], cfg)):
+            return vision_kernel.vision_stats(mip.contiguous(), cfg)
+        h, s, i = rgb_to_hsi_planes(mip[:, 0], mip[:, 1], mip[:, 2],
+                                    fast_acos=cfg.fast_hue_acos)
+        hist = hue_histogram_planes(h, s, i, cfg)
+        imodes = feature_stencil_plane(i)
+        grads = cell_gradient_stats_planes(imodes, cfg)
+        if not compute_debug_maps:
+            return hist, grads
+        return hist, grads, {
+            "histogram": hist,
+            "hue_map": _rot_pack(feature_stencil_plane(h)),
+            "saturation_map": _rot_pack(feature_stencil_plane(s)),
+            "intensity_map": _rot_pack(imodes),
+            "mip_hsi": torch.stack([h, s, i], dim=-1),
+        }
 
 
 def _one_frame(frame):
