@@ -39,6 +39,7 @@ from vaudio_torch.config import AuralizerConfig, LiveParams
 from vaudio_torch.io import ArraySource, PushSource, write_wav
 from vaudio_torch.runtime.chunked import run_offline_batched
 from vaudio_torch.runtime.engine import make_engine
+from vaudio_torch.runtime.staging import OfflineStaging
 from vaudio_torch.runtime.step import num_frames, run_offline
 from vaudio_torch.runtime.stream import StreamingAuralizer
 from vaudio_torch.utils.profiling import span
@@ -83,6 +84,9 @@ class Auralizer:
         self.device = self._engine.device
         self.params = params if params is not None else LiveParams()
         self._source = source
+        # The offline route's staging: its page-locked slice ring is made
+        # at the first chunked sonify of a host clip on the card and kept.
+        self._staging = OfflineStaging()
         #: The live :class:`PushSource` when the stream's source is
         #: push-model (set by :meth:`start`); the server's ``POST /frames``
         #: door feeds it.
@@ -126,10 +130,14 @@ class Auralizer:
                                  f"(expected auto, chunked or scan)")
             if mode == "auto":
                 mode = "chunked" if num_frames(frames) >= 8 else "scan"
-            run = run_offline_batched if mode == "chunked" else run_offline
-            audio, _carry, dbg = run(frames, self.config,
-                                     self.params.as_arrays(), debug=debug,
-                                     device=self.device)
+            if mode == "chunked":
+                audio, _carry, dbg = run_offline_batched(
+                    frames, self.config, self.params.as_arrays(),
+                    debug=debug, device=self.device, staging=self._staging)
+            else:
+                audio, _carry, dbg = run_offline(
+                    frames, self.config, self.params.as_arrays(),
+                    debug=debug, device=self.device)
             with span("vaudio.readback"):
                 audio = audio.cpu().numpy()
             if not debug:
@@ -298,6 +306,14 @@ class Auralizer:
             "dropped_frames": ring.dropped_frames,
             "underrun_samples": ring.underrun_samples,
         }
+
+    def ingest_metrics(self) -> Dict[str, int]:
+        """The offline route's staging counters: ``staging_allocs`` (page-
+        locked rings made), ``staging_reuses`` (staged clips through a
+        kept ring), ``staged_chunks`` and ``direct_chunks`` (chunks that
+        reached the device through the ring, or by the chunk step's own
+        copy)."""
+        return self._staging.metrics()
 
     def frame_error(self, frame) -> Optional[str]:
         """Engine-aware validation for the network-ingest door: an error

@@ -11,6 +11,7 @@ recurrence run as the CUDA kernels K1, K2 and K4 (``vaudio_torch.ops``).
 
 from __future__ import annotations
 
+import contextlib
 from typing import Any, Callable, Dict
 
 import numpy as np
@@ -230,12 +231,16 @@ def make_chunk_pipeline(cfg: AuralizerConfig, debug: bool = False,
 def run_offline_batched(frames, cfg: AuralizerConfig,
                         params: Dict[str, Any] | None = None,
                         carry: StepCarry | None = None,
-                        chunk: int = 64, debug: bool = False, device=None):
+                        chunk: int = 64, debug: bool = False, device=None,
+                        staging=None):
     """Offline sonification through the chunk-batched pipeline, ``chunk``
     frames at a time (the last piece may be shorter), carrying the DSP
     state across pieces.  ``frames`` (T, H, W, 3) u8 or f32, or a dict
     ``{"y", "u", "v"}`` of planar u8 YUV 4:2:0, numpy or tensors; each
-    piece is moved to ``device`` as it is processed.
+    piece is moved to ``device`` as it is processed: through ``staging``
+    (a :class:`vaudio_torch.runtime.staging.OfflineStaging`) where one is
+    given, else by the chunk step's own copy.  Returns once every read of
+    the caller's frames is done.
 
     Returns (audio f32[T*hop] or f32[T*hop, channels], final_carry,
     debug_dict of per-frame hues/grads/spectra when ``debug``), tensors on
@@ -248,13 +253,17 @@ def run_offline_batched(frames, cfg: AuralizerConfig,
     carry = init_carry(cfg, dev) if carry is None \
         else carry_from_numpy(carry, dev)
     T = num_frames(frames)
+    pieces = (staging.chunks(frames, chunk, dev) if staging is not None
+              else (frames_slice(frames, start, start + chunk)
+                    for start in range(0, T, chunk)))
     outs = []
-    for start in range(0, T, chunk):
-        with span("vaudio.step"):
-            carry, out = step(carry,
-                              frames_slice(frames, start, start + chunk),
-                              params)
-        outs.append(out)
+    with contextlib.closing(pieces):
+        for _ in range(0, T, chunk):
+            with span("vaudio.step"):
+                piece = next(pieces)
+                carry, out = step(carry, piece, params)
+            del piece           # a staged chunk's memory may go to the next
+            outs.append(out)
     outs = {k: torch.cat([o[k] for o in outs]) for k in outs[0]}
     audio = outs.pop("pcm")
     audio = audio.reshape(-1) if cfg.channels == 1 \

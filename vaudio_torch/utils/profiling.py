@@ -25,6 +25,9 @@ import torch.autograd.profiler as _autograd_profiler
 #: * ``vaudio.ingest.frames``: a host-to-device copy of frames (the
 #:   offline chunk's, the stream's frame or chunk, the pod's tick); a
 #:   pageable copy holds the host for its length.
+#: * ``vaudio.ingest.stage``: one fill thread's share of an offline slice's
+#:   copy into the page-locked ring (``runtime.staging``); the dispatching
+#:   thread waits for the ring inside ``vaudio.ingest.frames``.
 #: * ``vaudio.ingest.params``: a dispatch's copies of the live parameters.
 #: * ``vaudio.step``: one frame, chunk or pod tick through the runtime
 #:   step, with any engine (ingest of its parameters inside).
@@ -49,7 +52,8 @@ import torch.autograd.profiler as _autograd_profiler
 #: * ``vaudio.pod.stack``: the host copy of a tick's (or chunk's) frames
 #:   into one array.
 #: * ``vaudio.pod.flush``: readback and ring writes of the previous tick.
-SPANS = ("vaudio.sonify", "vaudio.ingest.frames", "vaudio.ingest.params",
+SPANS = ("vaudio.sonify", "vaudio.ingest.frames", "vaudio.ingest.stage",
+         "vaudio.ingest.params",
          "vaudio.step", "vaudio.step.vision", "vaudio.step.synth",
          "vaudio.step.dsp", "vaudio.vision.pool", "vaudio.vision.stats",
          "vaudio.readback", "vaudio.stream.source",
