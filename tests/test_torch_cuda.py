@@ -945,6 +945,7 @@ def test_pod_staging_on_the_card_is_pinned(dev):
     runs on the card bit for bit."""
     from vaudio_torch.runtime import MultiStreamAuralizer
     from vaudio_torch.runtime.engine import AuralizerEngine
+    from vaudio_torch.runtime.ingest import HostBuffers
     cfg = AuralizerConfig(channels=2, use_pallas=True,
                           use_pallas_vision=True, ring_buffer_frames=32)
     clips = [structured_frames(50 + s, 4, 1080, 1920) for s in range(2)]
@@ -953,7 +954,8 @@ def test_pod_staging_on_the_card_is_pinned(dev):
     m = p.metrics_dict()
     assert (m["staging_allocs"], m["staging_reuses"], m["dispatches"]) \
         == (1, 3, 4)
-    buf = p._staging._bufs[None]
+    assert isinstance(p._staging, HostBuffers) and p._staging.pinned
+    buf = p._staging.bufs[0][None]
     assert buf.is_pinned() and tuple(buf.shape) == (2, 1080, 1920, 3)
     for s, clip in enumerate(clips):
         ref, _, _ = step.run_offline(clip, cfg, device=dev)

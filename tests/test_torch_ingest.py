@@ -1,16 +1,26 @@
-"""The offline route's page-locked slice ring (vaudio_torch.runtime.staging
-``OfflineStaging``): the slice plan and the fill on the CPU, the direct
+"""The ingest module (vaudio_torch.runtime.ingest): the host dtype rule
+and the direct crossing on every route, nothing made before its first
+use, the kept buffers of the stream's chunk and the pod's tick
+(``HostBuffers``), and the offline route's page-locked slice ring
+(``OfflineStaging``): the slice plan and the fill on the CPU, the direct
 path a CPU device takes, the ring's re-making on a signature change, the
 staged walk's order and failures with the card's streams and events
 stood in for, and on the card (``cuda``-marked) the staged PCM equal to
-the direct path's bit for bit.  This file imports neither jax nor the JAX
-package:
+the direct path's bit for bit.  The pod's tick buffer at 32x48 frames
+and a few ticks: made at the first tick and re-made only when the
+tick's stacked signature changes (``staging_allocs``), every other tick
+stacked into it (``staging_reuses``); the step's batch never shares its
+memory; zero-copy frames recycled two ticks later are consumed within
+their tick.  The card's half of the pod's buffer (page-locked) is
+tests/test_torch_cuda.py::test_pod_staging_on_the_card_is_pinned.  This
+file imports neither jax nor the JAX package:
 
-    python -m pytest --noconftest -p no:cacheprovider tests/test_torch_offline_staging.py
+    python -m pytest --noconftest -p no:cacheprovider tests/test_torch_ingest.py
 """
 
 import contextlib
 import os
+import threading
 import time
 import weakref
 
@@ -19,17 +29,31 @@ import pytest
 import torch
 
 from vaudio_torch.api import Auralizer
-from vaudio_torch.config import AuralizerConfig
-from vaudio_torch.runtime import chunked, staging
+from vaudio_torch.config import AuralizerConfig, LiveParams
+from vaudio_torch.io import BorrowedFrame
+from vaudio_torch.parallel import make_stream_mesh
+from vaudio_torch.parallel.sharding import StreamShards
+from vaudio_torch.runtime import MultiStreamAuralizer, chunked, ingest
 from vaudio_torch.runtime.chunked import run_offline_batched
-from vaudio_torch.runtime.staging import (RING, OfflineStaging, fill_threads,
-                                          row_parts, slice_frames, slice_plan)
-from vaudio_torch.runtime.step import check_frames
+from vaudio_torch.runtime.engine import AuralizerEngine
+from vaudio_torch.runtime.ingest import (RING, OfflineStaging, check_frames,
+                                         fill_threads, host_frames,
+                                         row_parts, slice_frames, slice_plan,
+                                         to_device)
+from vaudio_torch.runtime.step import run_offline
 from vaudio_torch.utils.profiling import SPANS
 
 H, W = 64, 96
 CHUNK = 8
 CFG = AuralizerConfig(channels=2)
+# The pod's frames.
+PH, PW = 32, 48
+# The routes' tests check what crosses, not the synthesis: a small grid
+# and few partials keep their steps cheap.
+SMALL = AuralizerConfig(grid_size=2, num_harmonics=2, num_bessel_synth=2,
+                        ring_buffer_frames=64)
+HOP = 2048
+TIMEOUT = 120.0
 
 
 def rgb(seed, T, h=H, w=W):
@@ -38,13 +62,16 @@ def rgb(seed, T, h=H, w=W):
 
 
 def clip(kind, seed, T):
-    """A clip of T frames: RGB u8, RGB f32 in [0, 1] or planar YUV."""
+    """A clip of T frames: RGB u8, RGB f32 or f64 in [0, 1], or planar
+    YUV."""
     if kind == "yuv":
         g = np.random.default_rng(seed)
         return {"y": g.integers(16, 236, (T, H, W), np.uint8),
                 "u": g.integers(16, 241, (T, H // 2, W // 2), np.uint8),
                 "v": g.integers(16, 241, (T, H // 2, W // 2), np.uint8)}
     f = rgb(seed, T)
+    if kind == "f64":
+        return f / 255.0
     return (f / np.float32(255.0)).astype(np.float32) if kind == "f32" else f
 
 
@@ -56,6 +83,99 @@ def frame_bytes(f):
 def planes_of(f):
     f = check_frames(f)
     return f if isinstance(f, dict) else {None: f}
+
+
+# ---- the host dtype rule and the crossing on every route -------------------
+
+def frames_of(f):
+    """A clip's frames one by one, as a live or a pod source yields them."""
+    if isinstance(f, dict):
+        return [{k: v[t] for k, v in f.items()} for t in range(len(f["y"]))]
+    return list(f)
+
+
+def dtypes(frames):
+    return {p.dtype for p in (frames.values() if isinstance(frames, dict)
+                              else [frames])}
+
+
+def spying(step, seen):
+    def spy(carry, frames, params):
+        seen.update(dtypes(frames))
+        return step(carry, frames, params)
+    return spy
+
+
+@pytest.mark.parametrize("kind", ["u8", "f32", "f64", "yuv"])
+def test_every_route_crosses_in_the_host_dtype(kind):
+    """One host dtype rule on every route: u8 RGB and planar-YUV planes
+    cross as they are, f32 as it is, f64 as f32.  The offline direct path,
+    the live stream and the pod hand their steps that dtype, and each
+    gives the PCM of the clip cast on the host, bit for bit."""
+    T = 3
+    f = clip(kind, 90, T)
+    want = torch.uint8 if kind in ("u8", "yuv") else torch.float32
+    host = host_frames(f)
+    assert dtypes(check_frames(host)) == {want}
+    assert dtypes(to_device(check_frames(f), "cpu")) == {want}
+    ref = run_offline(f, SMALL, device="cpu")[0].numpy()
+    if kind == "f64":
+        np.testing.assert_array_equal(
+            run_offline(host, SMALL, device="cpu")[0].numpy(), ref)
+    aur = Auralizer(source=frames_of(f), config=SMALL, device="cpu",
+                    debug=False, prefer_native=False)
+    live_seen, pod_seen = set(), set()
+    aur._stream._step = spying(aur._stream._step, live_seen)
+    aur.run_until_exhausted(timeout=TIMEOUT)
+    np.testing.assert_array_equal(aur.pull(T * HOP), ref)
+    p = MultiStreamAuralizer(SMALL, n_streams=1, prefer_native=False,
+                             engine=AuralizerEngine(SMALL, device="cpu"))
+    p._step = spying(p._step, pod_seen)
+    run(p, [frames_of(f)])
+    np.testing.assert_array_equal(p.pull(0, T * HOP), ref)
+    p.stop()
+    assert live_seen == pod_seen == {want}
+
+
+# ---- nothing made before its first use -------------------------------------
+
+def staging_threads():
+    return {t.ident for t in threading.enumerate()
+            if t.name.startswith(("vaudio-fill", "vaudio-stage"))}
+
+
+def test_nothing_is_made_before_its_first_use():
+    """Constructing an Auralizer, a pod and a started one-frame stream
+    makes no host buffer, no fill or staging thread and no copy stream:
+    the ring waits for the first staged clip, the tick buffer for the
+    first tick, the chunk buffer for the first chunk."""
+    before = staging_threads()
+    aur = Auralizer(config=CFG, device="cpu")
+    p = make_pod(2)
+    release = threading.Event()
+
+    def source():
+        release.wait(TIMEOUT)
+        yield from rgb_clip(0, 3)
+
+    live = Auralizer(source=source(), config=SMALL, device="cpu",
+                     prefer_native=False)
+    live.start()
+    try:
+        st = aur._staging
+        assert aur.ingest_metrics()["staging_allocs"] == 0 and st.bufs == []
+        assert (st._fill, st._stager, st._copy_stream) == (None, None, None)
+        assert p.metrics_dict()["staging_allocs"] == 0
+        assert p._staging.bufs == []
+        assert live._stream._staging.allocs == 0
+        assert live._stream._staging.bufs == []
+        assert staging_threads() <= before
+    finally:
+        release.set()
+        live.stop()
+    run(p, [rgb_clip(s, 2) for s in range(2)])
+    assert p.metrics_dict()["staging_allocs"] == 1
+    p.stop()
 
 
 # ---- the slice plan, the budget and the row split (pure) -------------------
@@ -89,11 +209,11 @@ def test_slice_budget():
     frame 21; a frame over the budget goes alone."""
     uhd, hd = 2160 * 3840 * 3, 1080 * 1920 * 3
     assert slice_frames(uhd) == 5 and slice_frames(hd) == 21
-    assert RING * staging.SLICE_BYTES < 0.6e9
+    assert RING * ingest.SLICE_BYTES < 0.6e9
     for fb in (uhd, hd, 18432, 3 * 2 ** 20):
-        assert slice_frames(fb) * fb <= staging.SLICE_BYTES
-        assert (slice_frames(fb) + 1) * fb > staging.SLICE_BYTES
-    assert slice_frames(staging.SLICE_BYTES * 3) == 1
+        assert slice_frames(fb) * fb <= ingest.SLICE_BYTES
+        assert (slice_frames(fb) + 1) * fb > ingest.SLICE_BYTES
+    assert slice_frames(ingest.SLICE_BYTES * 3) == 1
 
 
 @pytest.mark.parametrize("n,rows,parts", [(5, 64, 7), (1, 64, 8), (8, 3, 8),
@@ -117,7 +237,7 @@ def test_fill_threads_follow_the_frame_and_the_affinity(frame_bytes, want):
     CPUs this process may run on less one, and at most MAX_FILL_THREADS."""
     cpus = len(os.sched_getaffinity(0))
     assert fill_threads(frame_bytes) == max(
-        1, min(want, cpus - 1, staging.MAX_FILL_THREADS))
+        1, min(want, cpus - 1, ingest.MAX_FILL_THREADS))
 
 
 def test_stage_span_is_registered():
@@ -129,8 +249,8 @@ def test_stage_span_is_registered():
 def test_ring_is_remade_only_on_a_new_signature():
     """One ring of RING buffers a plane, kept while the frame signature
     and the slice length stay, re-made on a new shape, dtype or plane
-    set; plain host memory when not ``pinned``."""
-    st = OfflineStaging(pinned=False)
+    set; plain host memory for a CPU device."""
+    st = OfflineStaging("cpu")
     a = planes_of(rgb(0, 10))
     bufs = st.ring(a, 4)
     assert (st.allocs, st.reuses) == (1, 0)
@@ -156,7 +276,7 @@ def test_ring_is_remade_only_on_a_new_signature():
 def test_fill_copies_the_slice_into_the_buffer_head(kind, s0, s1):
     f = clip(kind, 7, 14)
     planes = planes_of(f)
-    st = OfflineStaging(pinned=False)
+    st = OfflineStaging("cpu")
     buf = st.ring(planes, 5)[1]
     st.fill(planes, s0, s1, buf, threads=3)
     for k, p in planes.items():
@@ -170,14 +290,14 @@ def test_a_cpu_device_takes_the_direct_path(kind):
     no ring, thread or stream is made."""
     T = 2 * CHUNK + 3
     f = clip(kind, 8, T)
-    st = OfflineStaging(pinned=False)
+    st = OfflineStaging("cpu")
     a, _, _ = run_offline_batched(f, CFG, chunk=CHUNK, device="cpu",
                                   staging=st)
     b, _, _ = run_offline_batched(f, CFG, chunk=CHUNK, device="cpu")
     assert torch.equal(a, b)
     assert st.metrics() == {"staging_allocs": 0, "staging_reuses": 0,
                             "staged_chunks": 0, "direct_chunks": 3}
-    assert st._fill is None and st._stager is None and st._bufs == []
+    assert st._fill is None and st._stager is None and st.bufs == []
 
 
 def test_engages_only_for_host_clips_bound_for_cuda():
@@ -242,7 +362,7 @@ def stand_in(monkeypatch):
                         raising=False)
     monkeypatch.setattr(OfflineStaging, "engages",
                         staticmethod(lambda planes, device: True))
-    monkeypatch.setattr(staging, "SLICE_BYTES", 3 * H * W * 3)
+    monkeypatch.setattr(ingest, "SLICE_BYTES", 3 * H * W * 3)
     return compute
 
 
@@ -250,7 +370,7 @@ def stand_in(monkeypatch):
 @pytest.mark.parametrize("T", [3 * CHUNK + 3, CHUNK, 5])
 def test_staged_walk_equals_the_direct_path(stand_in, kind, T):
     f = clip(kind, 10 + T, T)
-    st = OfflineStaging(pinned=False)
+    st = OfflineStaging("cpu")
     a, _, _ = run_offline_batched(f, CFG, chunk=CHUNK, device="cpu",
                                   staging=st)
     b, _, _ = run_offline_batched(f, CFG, chunk=CHUNK, device="cpu")
@@ -260,7 +380,7 @@ def test_staged_walk_equals_the_direct_path(stand_in, kind, T):
                             "staged_chunks": n, "direct_chunks": 0}
     assert len(stand_in.waits) == n          # one wait a chunk, its last
     per = slice_frames(frame_bytes(f))
-    assert st._bufs[0][None if kind != "yuv" else "y"].shape[0] == per
+    assert st.bufs[0][None if kind != "yuv" else "y"].shape[0] == per
 
 
 def test_at_most_two_chunks_are_held_at_once(stand_in, monkeypatch):
@@ -278,7 +398,7 @@ def test_at_most_two_chunks_are_held_at_once(stand_in, monkeypatch):
         return t
 
     monkeypatch.setattr(torch, "empty", empty)
-    st = OfflineStaging(pinned=False)
+    st = OfflineStaging("cpu")
     for seed in range(3):
         run_offline_batched(rgb(seed, 6 * CHUNK + 3), CFG, chunk=CHUNK,
                             device="cpu", staging=st)
@@ -286,7 +406,7 @@ def test_at_most_two_chunks_are_held_at_once(stand_in, monkeypatch):
 
 
 def test_staged_walk_reuses_the_ring_across_calls(stand_in):
-    st = OfflineStaging(pinned=False)
+    st = OfflineStaging("cpu")
     for seed, T in ((1, 2 * CHUNK + 3), (2, CHUNK + 1), (3, 3)):
         f = rgb(seed, T)
         a, _, _ = run_offline_batched(f, CFG, chunk=CHUNK, device="cpu",
@@ -301,7 +421,7 @@ def test_a_failing_step_stops_the_staging_thread(stand_in, monkeypatch):
     """A step that raises mid-clip reaches the caller, and the call
     returns only once the staging thread has stopped; the next clip
     stages as usual."""
-    st = OfflineStaging(pinned=False)
+    st = OfflineStaging("cpu")
     real = chunked.chunk_pipeline
     calls = []
 
@@ -323,8 +443,8 @@ def test_a_failing_step_stops_the_staging_thread(stand_in, monkeypatch):
 
 
 def test_a_failing_fill_reaches_the_caller(stand_in, monkeypatch):
-    st = OfflineStaging(pinned=False)
-    real = staging._copy_rows
+    st = OfflineStaging("cpu")
+    real = ingest._copy_rows
     calls = []
 
     def failing(dst, src, run):
@@ -333,7 +453,7 @@ def test_a_failing_fill_reaches_the_caller(stand_in, monkeypatch):
             raise ValueError("fill failed")
         real(dst, src, run)
 
-    monkeypatch.setattr(staging, "_copy_rows", failing)
+    monkeypatch.setattr(ingest, "_copy_rows", failing)
     with pytest.raises(ValueError, match="fill failed"):
         run_offline_batched(rgb(5, 3 * CHUNK), CFG, chunk=CHUNK,
                             device="cpu", staging=st)
@@ -353,7 +473,7 @@ def dev():
 def small_slices(monkeypatch):
     """Three frames a slice, so a chunk of 8 crosses in three slices and
     the ring of three turns over within a chunk."""
-    monkeypatch.setattr(staging, "SLICE_BYTES", 3 * H * W * 3)
+    monkeypatch.setattr(ingest, "SLICE_BYTES", 3 * H * W * 3)
 
 
 @pytest.mark.cuda
@@ -362,7 +482,7 @@ def small_slices(monkeypatch):
 def test_staged_pcm_equals_the_direct_path_on_the_card(dev, small_slices,
                                                        kind, T):
     f = clip(kind, 20 + T, T)
-    st = OfflineStaging()
+    st = OfflineStaging(dev)
     a, _, _ = run_offline_batched(f, CFG, chunk=CHUNK, device=dev,
                                   staging=st)
     b, _, _ = run_offline_batched(f, CFG, chunk=CHUNK, device=dev)
@@ -370,7 +490,7 @@ def test_staged_pcm_equals_the_direct_path_on_the_card(dev, small_slices,
     assert st.metrics() == {"staging_allocs": 1, "staging_reuses": 0,
                             "staged_chunks": -(-T // CHUNK),
                             "direct_chunks": 0}
-    for buf in st._bufs:
+    for buf in st.bufs:
         assert all(t.is_pinned() for t in buf.values())
 
 
@@ -386,7 +506,7 @@ def test_back_to_back_clips_and_overwritten_frames_on_the_card(dev,
     refs = [run_offline_batched(c, CFG, chunk=CHUNK, device=dev)[0]
             for c in clips]
     torch.cuda.synchronize()
-    st = OfflineStaging()
+    st = OfflineStaging(dev)
     outs = []
     for c in clips:
         outs.append(run_offline_batched(c, CFG, chunk=CHUNK, device=dev,
@@ -405,7 +525,7 @@ def test_at_most_two_chunks_on_the_card(dev):
     crossing while one runs), with the same PCM."""
     f = rgb(50, 6 * CHUNK + 3, h=1080, w=1920)
     chunk_bytes = CHUNK * f[0].nbytes
-    st = OfflineStaging()
+    st = OfflineStaging(dev)
     run_offline_batched(f[:CHUNK + 1], CFG, chunk=CHUNK, device=dev,
                         staging=st)
 
@@ -450,3 +570,178 @@ def test_sonify_stages_on_the_card(dev, small_slices):
     assert aur.ingest_metrics()["direct_chunks"] == 1
     aur.sonify(rgb(44, 9 * CHUNK + 3))
     assert aur.ingest_metrics()["staging_reuses"] == 1
+
+
+# ---- the pod's tick buffer --------------------------------------------------
+
+def rgb_clip(seed, T):
+    return np.random.default_rng(seed).integers(0, 256, (T, PH, PW, 3),
+                                                np.uint8)
+
+
+def yuv_clip(seed, T):
+    """T planar-YUV 4:2:0 frames, a dict of u8 planes each."""
+    g = np.random.default_rng(seed)
+    return [{"y": g.integers(16, 236, (PH, PW), np.uint8),
+             "u": g.integers(16, 241, (PH // 2, PW // 2), np.uint8),
+             "v": g.integers(16, 241, (PH // 2, PW // 2), np.uint8)}
+            for _ in range(T)]
+
+
+def make_pod(n_streams, **kwargs):
+    cfg = AuralizerConfig()
+    return MultiStreamAuralizer(
+        cfg, n_streams=n_streams, prefer_native=False,
+        engine=AuralizerEngine(cfg, device="cpu"), **kwargs)
+
+
+def wait_for(cond, p):
+    t0 = time.monotonic()
+    while not cond():
+        p.raise_if_failed()
+        assert time.monotonic() - t0 < TIMEOUT
+        time.sleep(0.005)
+
+
+def run(p, sources):
+    p.start([iter(s) for s in sources])
+    wait_for(lambda: not p.is_running, p)
+    p.raise_if_failed()
+    return p
+
+
+def counts(p):
+    m = p.metrics_dict()
+    return m["staging_allocs"], m["staging_reuses"], m["dispatches"]
+
+
+def test_steady_pod_allocates_once():
+    """S = 3 over 6 ticks: one buffer, made at the first tick and kept."""
+    p = run(make_pod(3), [rgb_clip(s, 6) for s in range(3)])
+    assert counts(p) == (1, 5, 6)
+    buf = p._staging.bufs[0][None]
+    assert buf.shape == (3, PH, PW, 3) and buf.dtype == torch.uint8
+    assert not buf.is_pinned()         # a CPU engine: plain host memory
+    p.stop()
+
+
+def test_resize_remakes_the_buffer_once_each_way():
+    """A live grow 1 -> 2 and a shrink 2 -> 1 each add exactly one alloc;
+    every other tick reuses."""
+    p = make_pod(1, exit_when_exhausted=False)
+    p.start([iter(rgb_clip(0, 3))])
+    wait_for(lambda: p.stream_metrics(0)["buffer_fill"] >= 3, p)
+    assert counts(p)[:2] == (1, 2)
+    p.resize(2)
+    p.replace_source(0, iter(rgb_clip(1, 3)))
+    p.replace_source(1, iter(rgb_clip(2, 3)))
+    wait_for(lambda: p.stream_metrics(1)["buffer_fill"] >= 3, p)
+    allocs, reuses, dispatches = counts(p)
+    assert allocs == 2 and reuses == dispatches - 2
+    assert p._staging.bufs[0][None].shape[0] == 2
+    p.resize(1)
+    p.pull(0, 6 * HOP)
+    p.replace_source(0, iter(rgb_clip(3, 4)))
+    wait_for(lambda: p.stream_metrics(0)["buffer_fill"] >= 4, p)
+    allocs, reuses, dispatches = counts(p)
+    assert allocs == 3 and reuses == dispatches - 3
+    assert p._staging.bufs[0][None].shape[0] == 1
+    p.stop()
+
+
+@pytest.mark.parametrize("chunk,yuv", [(3, False), (1, True), (3, True)])
+def test_chunked_and_yuv_pods_keep_their_own_buffers(chunk, yuv):
+    """A chunked pod stacks into one (S, T, ...) buffer, a planar-YUV pod
+    into one buffer a plane; each made once."""
+    sources = ([yuv_clip(s, 6) for s in range(2)] if yuv
+               else [rgb_clip(s, 6) for s in range(2)])
+    p = run(make_pod(2, chunk_frames=chunk), sources)
+    assert counts(p) == (1, 6 // chunk - 1, 6 // chunk)
+    lead = (2, chunk) if chunk > 1 else (2,)
+    bufs = p._staging.bufs[0]
+    want = ({"y": (PH, PW), "u": (PH // 2, PW // 2),
+             "v": (PH // 2, PW // 2)} if yuv else {None: (PH, PW, 3)})
+    assert {k: tuple(b.shape) for k, b in bufs.items()} \
+        == {k: lead + s for k, s in want.items()}
+    p.stop()
+
+
+def _leaves(tree):
+    if isinstance(tree, StreamShards):
+        return [x for part in tree for x in _leaves(part)]
+    if isinstance(tree, dict):
+        return list(tree.values())
+    return [tree]
+
+
+@pytest.mark.parametrize("case", ["rgb", "chunked", "yuv", "mesh"])
+def test_step_batch_never_shares_the_staging_buffer(case):
+    """On the CPU, where ``.to`` alone would hand back the same memory,
+    the tick's put copies: no leaf of the step's batch (a mesh's shards
+    included) shares memory with the staging buffer."""
+    kwargs = {"chunk_frames": 2} if case == "chunked" else {}
+    if case == "mesh":
+        kwargs.update(mesh=make_stream_mesh(2, 1, devices=["cpu"] * 2),
+                      params=LiveParams())     # a mesh shares one
+    p = make_pod(2, **kwargs)
+    seen = []
+    step = p._step
+
+    def spy(carry, batch, params):
+        staged = [b.numpy() for b in p._staging.bufs[0].values()]
+        seen.append(any(np.shares_memory(x.numpy(), s)
+                        for x in _leaves(batch) for s in staged))
+        return step(carry, batch, params)
+
+    p._step = spy
+    sources = ([yuv_clip(s, 4) for s in range(2)] if case == "yuv"
+               else [rgb_clip(s, 4) for s in range(2)])
+    run(p, sources)
+    assert seen == [False] * p.metrics.dispatches and seen
+    p.stop()
+
+
+def pooled(clip, n_buffers=3, lag=2):
+    """``clip``'s frames as read-only :class:`BorrowedFrame` views over a
+    pool of ``n_buffers`` slots, each view's slot recycled (overwritten
+    with other bytes) ``lag`` iterations after it was yielded, as
+    ``NativeFrameReader.frames_view`` recycles its pool."""
+    pool = np.zeros((n_buffers,) + clip.shape[1:], np.uint8)
+    for n, frame in enumerate(clip):
+        if n >= lag:
+            pool[(n - lag) % n_buffers] = 255 - pool[(n - lag) % n_buffers]
+        pool[n % n_buffers] = frame
+        view = pool[n % n_buffers].view(BorrowedFrame)
+        view.flags.writeable = False
+        yield view
+
+
+@pytest.mark.parametrize("chunk", [1, 3])
+def test_borrowed_frames_equal_owned_frames(chunk):
+    """A pod fed pool views recycled two ticks later gives bit for bit the
+    PCM of the same pod fed owned frames: the stack into the staging
+    buffer (chunks: ``own_frame``) consumes each view within its tick."""
+    clips = [rgb_clip(10 + s, 6) for s in range(2)]
+    owned = run(make_pod(2, chunk_frames=chunk), clips)
+    borrowed = run(make_pod(2, chunk_frames=chunk),
+                   [pooled(c) for c in clips])
+    for s in range(2):
+        want = owned.pull(s, 6 * HOP)
+        assert np.any(want)
+        np.testing.assert_array_equal(borrowed.pull(s, 6 * HOP), want)
+    owned.stop()
+    borrowed.stop()
+
+
+def test_stream_chunks_reuse_one_buffer():
+    """A stream in chunks of 3 stacks its 10 chunks into one kept host
+    buffer, made at the first, and gives run_offline_batched's PCM."""
+    frames = rgb_clip(20, 30)
+    aur = Auralizer(source=frames, config=SMALL, device="cpu", debug=False,
+                    prefer_native=False, chunk_frames=3)
+    aur.run_until_exhausted(timeout=TIMEOUT)
+    st = aur._stream._staging
+    assert (st.allocs, st.reuses) == (1, 9)
+    assert st.bufs[0][None].shape == (3, PH, PW, 3)
+    want, _, _ = run_offline_batched(frames, SMALL, chunk=3, device="cpu")
+    np.testing.assert_array_equal(aur.pull(30 * HOP), want.numpy())

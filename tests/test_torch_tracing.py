@@ -251,7 +251,7 @@ def test_a_profiler_started_after_the_producer_records_it(tmp_path):
                                   "params already tensors",
                                   "frames already on the device"])
 def test_ingest_spans_only_where_a_copy_is_made(case, tmp_path):
-    from vaudio_torch.runtime.step import frames_to_device
+    from vaudio_torch.runtime.ingest import check_frames, to_device
     host = LiveParams().as_arrays()
     with _profile() as prof:
         if case == "params from the host":
@@ -260,7 +260,7 @@ def test_ingest_spans_only_where_a_copy_is_made(case, tmp_path):
             params_to_device({k: torch.as_tensor(v) for k, v in host.items()},
                              CFG, "cpu")
         else:
-            frames_to_device(torch.as_tensor(_frames(2)), "cpu")
+            to_device(check_frames(_frames(2)), "cpu")
     names = [s[1] for s in _spans(prof, tmp_path)]
     want = ["vaudio.ingest.params"] if case == "params from the host" else []
     assert names == want

@@ -39,8 +39,9 @@ from vaudio_torch.config import AuralizerConfig, LiveParams
 from vaudio_torch.io import ArraySource, PushSource, write_wav
 from vaudio_torch.runtime.chunked import run_offline_batched
 from vaudio_torch.runtime.engine import make_engine
-from vaudio_torch.runtime.staging import OfflineStaging
-from vaudio_torch.runtime.step import num_frames, run_offline
+from vaudio_torch.runtime.ingest import (OfflineStaging, num_frames,
+                                         to_device)
+from vaudio_torch.runtime.step import run_offline
 from vaudio_torch.runtime.stream import StreamingAuralizer
 from vaudio_torch.utils.profiling import span
 from vaudio_torch.vision.features import extract_features
@@ -86,7 +87,7 @@ class Auralizer:
         self._source = source
         # The offline route's staging: its page-locked slice ring is made
         # at the first chunked sonify of a host clip on the card and kept.
-        self._staging = OfflineStaging()
+        self._staging = OfflineStaging(self.device)
         #: The live :class:`PushSource` when the stream's source is
         #: push-model (set by :meth:`start`); the server's ``POST /frames``
         #: door feeds it.
@@ -266,12 +267,9 @@ class Auralizer:
                 f"inspect_frame analyzes the flagship 16-cell model; "
                 f"the {self.model!r} family has no cell debug surface "
                 "(spectrum/waveform views still work live)")
-        frame = np.asarray(frame)
-        if frame.dtype != np.uint8:
-            frame = frame.astype(np.float32, copy=False)
         dev = self.device
         hues, grads, dbg = extract_features(
-            torch.as_tensor(frame).to(dev),
+            to_device(frame, dev),
             torch.as_tensor(self._stream.snapshot_carry().hues).to(dev),
             torch.tensor(np.float32(self.params.spectrum_mixing),
                          device=dev),

@@ -49,6 +49,7 @@ from typing import Iterator, Optional
 import numpy as np
 
 from vaudio_torch.io.push import encode_frame
+from vaudio_torch.runtime.ingest import host_dtype
 
 __all__ = ["VaudioHTTPError", "AudioStream", "StreamClient",
            "PodClient", "PodSlot", "FleetClient", "frame_sig_json"]
@@ -57,19 +58,18 @@ __all__ = ["VaudioHTTPError", "AudioStream", "StreamClient",
 def frame_sig_json(frame) -> dict:
     """A frame's static-contract signature in the pods' advertised
     format (``frame_sig`` in the pod metrics): shape plus the dtype the
-    pod's ingest normalization gives it — RGB arrays: uint8 passes
-    through, everything else becomes float32; planar-YUV dict planes
-    keep their dtype VERBATIM (the pod's `_normalize_frame` never
-    converts planes).  Shape-aware fleet placement compares these
-    directly (:meth:`FleetClient.acquire` ``frame=``)."""
+    pod's host dtype rule (:func:`~vaudio_torch.runtime.ingest.host_dtype`)
+    gives it — RGB arrays: uint8 passes through, everything else becomes
+    float32; planar-YUV dict planes keep their dtype VERBATIM.
+    Shape-aware fleet placement compares these directly
+    (:meth:`FleetClient.acquire` ``frame=``)."""
     if isinstance(frame, dict):
         return {"planes": {
             k: {"shape": list(np.asarray(v).shape),
                 "dtype": str(np.asarray(v).dtype)}
             for k, v in sorted(frame.items())}}
     a = np.asarray(frame)
-    dtype = "uint8" if a.dtype == np.uint8 else "float32"
-    return {"shape": list(a.shape), "dtype": dtype}
+    return {"shape": list(a.shape), "dtype": str(host_dtype(a.dtype))}
 
 
 class VaudioHTTPError(RuntimeError):

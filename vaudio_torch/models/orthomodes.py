@@ -41,6 +41,7 @@ from vaudio_torch.dsp.core import (hann_sinc_peak_fast, hann_window_norm,
                                    irfft_from_half)
 from vaudio_torch.ops import pool_kernel
 from vaudio_torch.ops.audio_kernel import agc_overlap_add_frames
+from vaudio_torch.runtime.ingest import to_device
 from vaudio_torch.vision.features import mip_downsample_planes
 
 _TWO_PI = float(np.float32(2.0 * np.pi))
@@ -334,13 +335,6 @@ class OrthoModesModel:
                 "spectrum_mixing": np.float32(0.9),
                 "attack": np.float32(1.0), "release": np.float32(1.0)}
 
-    def _frames(self, frames):
-        frames = frames if isinstance(frames, torch.Tensor) \
-            else torch.as_tensor(np.asarray(frames))
-        if frames.dtype != torch.uint8:
-            frames = frames.to(torch.float32)
-        return frames.to(self.device)
-
     def _spectra(self, carry: OrthoCarry, frames, params):
         """The frames' phases and spectra: (phases f32[P], spectra
         f32[T, F, 2]).  All T frames pool in one call; the phase recurrence
@@ -388,7 +382,7 @@ class OrthoModesModel:
         :meth:`chunk_step`) one frame of each of S streams (S, H, W, 3) in,
         pcm f32[S, hop] out."""
         pod = carry.phases.dim() == 2
-        frames = self._frames(frame)
+        frames = to_device(frame, self.device)
         carry, pcm, _ = self.chunk_step(
             carry, frames[:, None] if pod else frames[None], params, window)
         return carry, pcm[:, 0] if pod else pcm[0]
@@ -406,7 +400,8 @@ class OrthoModesModel:
         result leads with S."""
         params = params_on(params, self.device)
         window = self.window if window is None else window
-        phases, spectra = self._spectra(carry, self._frames(frames), params)
+        phases, spectra = self._spectra(carry, to_device(frames, self.device),
+                                        params)
         pcm, ola_tail, running_max = agc_overlap_add_frames(
             irfft_from_half(spectra), carry.ola_tail, window,
             carry.running_max, params["attack"], params["release"])

@@ -62,11 +62,10 @@ from vaudio_torch.parallel.multihost import (host_group,
                                              make_multihost_mesh,
                                              process_count)
 from vaudio_torch.parallel.sharding import (StreamMesh, _engine_step,
-                                            _tree_map, process_index,
-                                            shard_put)
+                                            process_index, shard_put)
+from vaudio_torch.runtime.ingest import host_frames, to_device
 from vaudio_torch.runtime.multistream import (MultiStreamAuralizer,
-                                              _frame_sig, _normalize_frame,
-                                              _zeros_like_frame)
+                                              _frame_sig, _zeros_like_frame)
 
 
 class MultiHostPod(MultiStreamAuralizer):
@@ -137,7 +136,7 @@ class MultiHostPod(MultiStreamAuralizer):
             lease_timeout=lease_timeout)
         # The static frame contract, fixed up front (dark lockstep ticks
         # need a zeros template before any real frame arrives).
-        tmpl = _normalize_frame(frame)
+        tmpl = host_frames(frame)
         err = self.engine.frame_error(tmpl, self.cfg)
         if err is not None:
             raise ValueError(f"frame template rejected: {err}")
@@ -166,10 +165,10 @@ class MultiHostPod(MultiStreamAuralizer):
         return shard_put(self._gmesh, tree)
 
     def _put_frames(self, staged):
-        """NumPy views of the tick's staging buffer over this process's
-        stream shards (:func:`shard_put` copies each shard synchronously,
-        so the batch never shares the buffer's memory)."""
-        return self._shard_put(_tree_map(torch.Tensor.numpy, staged))
+        """The tick's staging buffer over this process's stream shards
+        (:meth:`_put_shards` through :meth:`_shard_put`: each shard copied
+        synchronously, so the batch never shares the buffer's memory)."""
+        return to_device(staged, put=self._put_shards)
 
     def _barrier(self) -> None:
         """The construction barrier: every process contributes (its stream

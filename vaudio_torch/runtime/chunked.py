@@ -22,10 +22,10 @@ from vaudio_torch.config import AuralizerConfig
 from vaudio_torch.dsp.core import (hann_window_norm, irfft_from_half,
                                    irfft_from_half_dense)
 from vaudio_torch.ops.audio_kernel import agc_overlap_add_chunk
+from vaudio_torch.runtime.ingest import (check_frames, frames_slice,
+                                         num_frames, to_device)
 from vaudio_torch.runtime.step import (StepCarry, carry_from_numpy,
-                                       check_frames, frames_slice,
-                                       frames_to_device, init_carry,
-                                       num_frames, params_to_device)
+                                       init_carry, params_to_device)
 from vaudio_torch.synth.spectrum import (SynthConstants, _stream_rows,
                                          contract_spectrum,
                                          filter_gain_from_params,
@@ -221,7 +221,7 @@ def make_chunk_pipeline(cfg: AuralizerConfig, debug: bool = False,
     window = torch.as_tensor(hann_window_norm(cfg.nfft), device=dev)
 
     def step(carry, frames, params):
-        return chunk_pipeline(carry, frames_to_device(frames, dev),
+        return chunk_pipeline(carry, to_device(check_frames(frames), dev),
                               params_to_device(params, cfg, dev), cfg,
                               consts, window, debug=debug)
 
@@ -238,7 +238,7 @@ def run_offline_batched(frames, cfg: AuralizerConfig,
     state across pieces.  ``frames`` (T, H, W, 3) u8 or f32, or a dict
     ``{"y", "u", "v"}`` of planar u8 YUV 4:2:0, numpy or tensors; each
     piece is moved to ``device`` as it is processed: through ``staging``
-    (a :class:`vaudio_torch.runtime.staging.OfflineStaging`) where one is
+    (a :class:`vaudio_torch.runtime.ingest.OfflineStaging`) where one is
     given, else by the chunk step's own copy.  Returns once every read of
     the caller's frames is done.
 

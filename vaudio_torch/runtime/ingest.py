@@ -1,19 +1,20 @@
-"""Staging of an offline clip's frames on their way to the card: the
-offline route's page-locked slice ring, beside the pod's tick staging
-(:class:`vaudio_torch.runtime.multistream._TickStaging`) and sharing no
-logic with it.
+"""Frames on their way from host memory to the device, in one place: a
+clip's shape (:func:`check_frames`), the host dtype rule
+(:func:`host_dtype`), the direct crossing of every route
+(:func:`to_device`), and the kept host buffers of the routes that stage
+(:class:`HostBuffers`, page-locked where the device is CUDA): the pod's
+tick and the stream's chunk (:meth:`HostBuffers.stack`), and the
+offline slice ring (:class:`OfflineStaging`).  Nothing is made before
+its first use.
 
-A clip in pageable host memory is cut into slices of its chunks
-(:func:`slice_plan`, :func:`slice_frames`).  A staging thread walks the
-slices in order: a pool of fill threads copies each slice into the next
-buffer of a ring of :data:`RING` page-locked buffers
-(``vaudio.ingest.stage``), then the staging thread queues the buffer's
-DMA, ``non_blocking`` on a side stream, into the slice's rows of its
-chunk's device tensor and records an event.  The dispatching thread only
-waits, inside ``vaudio.ingest.frames``, for a chunk whose last slice has
-not been queued yet, and makes the compute stream wait on that slice's
-event.  So chunk k+1's bytes are filled and cross while chunk k is
-dispatched and runs.
+The slice ring: a staging thread walks a host clip's slices
+(:func:`slice_plan`) in order; fill threads copy each into the next of
+:data:`RING` page-locked buffers (``vaudio.ingest.stage``), and the
+staging thread queues the buffer's DMA, ``non_blocking`` on a side
+stream, into the chunk's device tensor and records an event.  The
+dispatching thread waits, inside ``vaudio.ingest.frames``, only for a
+chunk not yet queued, and makes the compute stream wait on its event:
+chunk k+1's bytes cross while chunk k is dispatched and runs.
 """
 
 from __future__ import annotations
@@ -22,12 +23,12 @@ import os
 import queue
 import threading
 from concurrent.futures import ThreadPoolExecutor, wait
-from typing import Dict, Iterator, List, Optional, Tuple
+from typing import Callable, Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from vaudio_torch.runtime.step import frames_slice, num_frames
+from vaudio_torch.io.sources import BorrowedFrame
 from vaudio_torch.utils.profiling import span
 
 #: Page-locked slice buffers in the ring: a slice fills while the one
@@ -45,12 +46,178 @@ MAX_FILL_THREADS = 8
 #: fill at the dispatch's pace only take the CPUs and the memory
 #: bandwidth that the dispatching thread needs.
 FILL_BYTES_PER_THREAD = 1_750_000
-#: The dtypes a staged clip may have: those that reach the card as they
-#: are (u8, and f32, which an RGB clip of any other type becomes).
-STAGED_DTYPES = (torch.uint8, torch.float32)
 
 Plan = List[Tuple[int, int, List[Tuple[int, int]]]]
+Planes = Dict[Optional[str], torch.Tensor]
 
+
+# ---- a clip on the host -----------------------------------------------------
+
+def check_frames(frames):
+    """A clip as tensors, not yet moved (a numpy array is shared, not
+    copied): RGB (T, H, W, 3), or a dict ``{"y", "u", "v"}`` of planar
+    YUV 4:2:0 (T, H, W), (T, H/2, W/2)."""
+    if isinstance(frames, dict):
+        planes = {k: _as_tensor(frames[k]) for k in ("y", "u", "v")}
+        y = planes["y"]
+        if y.ndim != 3 or any(planes[k].shape[0] != y.shape[0]
+                              or planes[k].ndim != 3 for k in ("u", "v")):
+            raise ValueError(f"expected YUV planes y [T, H, W], u and v "
+                             f"[T, H/2, W/2]; got shapes "
+                             f"{[tuple(p.shape) for p in planes.values()]}")
+        return planes
+    frames = _as_tensor(frames)
+    if frames.ndim != 4 or frames.shape[-1] != 3:
+        raise ValueError(f"expected frames [T, H, W, 3]; got shape "
+                         f"{tuple(frames.shape)}")
+    return frames
+
+
+def _as_tensor(x):
+    return x if isinstance(x, torch.Tensor) else torch.as_tensor(
+        np.asarray(x))
+
+
+def num_frames(frames) -> int:
+    """T of a clip: RGB frames or a dict of YUV planes."""
+    return len(frames["y"] if isinstance(frames, dict) else frames)
+
+
+def frame_at(frames, t: int):
+    """Frame ``t`` of a clip: (H, W, 3), or a dict of its YUV planes."""
+    if isinstance(frames, dict):
+        return {k: v[t] for k, v in frames.items()}
+    return frames[t]
+
+
+def frames_slice(frames, start: int, end: int):
+    """Frames ``start:end`` of a clip (each plane of a YUV dict)."""
+    if isinstance(frames, dict):
+        return {k: v[start:end] for k, v in frames.items()}
+    return frames[start:end]
+
+
+# ---- the host dtype rule and the direct crossing ----------------------------
+
+def host_dtype(dtype):
+    """The host dtype rule: the dtype in which an RGB frame of ``dtype`` (a
+    NumPy or a torch dtype) crosses to the device, of the same kind.  u8
+    stays u8, a quarter of f32's bytes over the link; any other type
+    becomes f32.  A planar-YUV frame's planes cross as they are."""
+    if isinstance(dtype, torch.dtype):
+        return torch.uint8 if dtype == torch.uint8 else torch.float32
+    return np.dtype(np.uint8 if dtype == np.uint8 else np.float32)
+
+
+def host_frames(frames):
+    """``frames`` (one frame or a clip: RGB, or a dict of planar-YUV
+    planes; NumPy or tensors) in the host dtype, where they are: not
+    copied where the dtype holds, and a NumPy subclass (a borrowed pool
+    view) kept."""
+    if isinstance(frames, dict):
+        return {k: v if isinstance(v, torch.Tensor) else np.asanyarray(v)
+                for k, v in frames.items()}
+    if isinstance(frames, torch.Tensor):
+        return frames.to(host_dtype(frames.dtype))
+    frames = np.asanyarray(frames)
+    return frames.astype(host_dtype(frames.dtype), copy=False)
+
+
+def to_device(frames, device=None, copy: bool = False,
+              put: Optional[Callable] = None):
+    """``frames`` (as :func:`host_frames` takes them) as tensors on
+    ``device`` in the host dtype, by a synchronous copy.  A tensor on its
+    device comes back as it is (an offline clip on the CPU) unless
+    ``copy`` (out of a buffer the caller rewrites); a borrowed pool view
+    bound for the CPU is always copied.  ``put`` places the frames instead
+    (the pod's mesh).  Inside ``vaudio.ingest.frames`` unless every plane
+    is a tensor off the host or bound for the CPU and no copy is asked."""
+    frames = host_frames(frames)
+    if put is not None:
+        with span("vaudio.ingest.frames"):
+            return put(frames)
+    dev = torch.device(device)
+    planes = frames.values() if isinstance(frames, dict) else (frames,)
+    if not copy and all(isinstance(p, torch.Tensor)
+                        and (p.device.type != "cpu" or dev.type == "cpu")
+                        for p in planes):
+        return _moved(frames, dev, False)
+    with span("vaudio.ingest.frames"):
+        return _moved(frames, dev, copy)
+
+
+def _moved(frames, dev: torch.device, copy: bool):
+    if isinstance(frames, dict):
+        return {k: _moved(v, dev, copy) for k, v in frames.items()}
+    if not isinstance(frames, torch.Tensor):
+        if dev.type == "cpu" and isinstance(frames, BorrowedFrame):
+            frames = np.array(frames)     # as_tensor would share its slot
+        frames = torch.as_tensor(np.asarray(frames))
+    return frames.to(dev, copy=copy)
+
+
+# ---- kept host buffers -----------------------------------------------------
+
+def _torch_dtype(dtype) -> torch.dtype:
+    """The torch dtype of a NumPy dtype (a torch dtype as it is)."""
+    if isinstance(dtype, torch.dtype):
+        return dtype
+    return torch.from_numpy(np.empty(0, dtype)).dtype
+
+
+class HostBuffers:
+    """Host buffers for frames bound for ``device``, page-locked where it
+    is CUDA: a set of buffers, one tensor a plane (RGB under None), kept
+    until its layout changes.  ``allocs`` counts the sets made,
+    ``reuses`` the uses of a kept one."""
+
+    def __init__(self, device):
+        self.pinned = torch.device(device).type == "cuda"
+        self.allocs = 0
+        self.reuses = 0
+        self.bufs: List[Planes] = []
+        self._key = None
+
+    def take(self, layout: Dict[Optional[str], Tuple[tuple, object]],
+             copies: int = 1,
+             retire: Optional[Callable[[], None]] = None) -> List[Planes]:
+        """``copies`` buffers of ``layout`` (plane: (shape, NumPy or torch
+        dtype)): the kept set, or a new one made once ``retire()`` has
+        waited for the last readers of the old."""
+        key = (copies, tuple(sorted(layout.items(),
+                                    key=lambda kv: str(kv[0]))))
+        if key == self._key:
+            self.reuses += 1
+            return self.bufs
+        if retire is not None and self.bufs:
+            retire()
+        self.bufs = [{k: torch.empty(shape, dtype=_torch_dtype(dt),
+                                     pin_memory=self.pinned)
+                      for k, (shape, dt) in layout.items()}
+                     for _ in range(copies)]
+        self._key = key
+        self.allocs += 1
+        return self.bufs
+
+    def stack(self, frames: Sequence, chunked: bool = False):
+        """``frames`` copied into the kept buffer on a leading axis (the
+        pod's tick, the stream's chunk; ``chunked``: each slot's frames,
+        (S, T, ...)), so borrowed pool views are consumed here: its tensor,
+        or a dict of them a plane, until the next stack rewrites it."""
+        first = frames[0][0] if chunked else frames[0]
+        lead = ((len(frames), len(frames[0])) if chunked
+                else (len(frames),))
+        planes = first if isinstance(first, dict) else {None: first}
+        buf, = self.take({k: (lead + v.shape, v.dtype)
+                          for k, v in planes.items()})
+        for k, b in buf.items():
+            out = b.numpy()
+            for row, fs in (zip(out, frames) if chunked else [(out, frames)]):
+                np.stack([f if k is None else f[k] for f in fs], out=row)
+        return buf[None] if None in buf else dict(buf)
+
+
+# ---- the offline route's slice ring -----------------------------------------
 
 def slice_frames(frame_bytes: int) -> int:
     """The most frames of ``frame_bytes`` each in one slice: as many as
@@ -109,29 +276,23 @@ def _copy_rows(dst: np.ndarray, src: np.ndarray, run) -> None:
             np.copyto(dst[f, r0:r1], src[f, r0:r1])
 
 
-class OfflineStaging:
+class OfflineStaging(HostBuffers):
     """The offline route's host staging, owned by an ``Auralizer`` and
-    kept across its ``sonify`` calls: a ring of :data:`RING` slice
-    buffers, one a plane of a planar-YUV dict, page-locked when
-    ``pinned``; made at the first staged clip and re-made only when the
-    frame signature changes.  The fill threads, the staging thread and
-    the copy stream are made at the first staged clip too.
+    kept across its ``sonify`` calls: its kept set is a ring of
+    :data:`RING` slice buffers, made at the first staged clip like the
+    fill threads, the staging thread and the copy stream.
 
     :meth:`chunks` hands a clip to the runtime chunk by chunk: staged for
-    a host-resident clip of :data:`STAGED_DTYPES` bound for a CUDA
+    a host-resident clip that crosses in its own dtype, bound for a CUDA
     device, else as slices of the clip as it is (the direct path, whose
     chunk step copies them).  Counters: ``staging_allocs`` (rings made),
     ``staging_reuses`` (staged clips through a kept ring),
     ``staged_chunks`` and ``direct_chunks``."""
 
-    def __init__(self, pinned: bool = True):
-        self.pinned = pinned
-        self.allocs = 0
-        self.reuses = 0
+    def __init__(self, device):
+        super().__init__(device)
         self.staged_chunks = 0
         self.direct_chunks = 0
-        self._sig = None
-        self._bufs: List[Dict[Optional[str], torch.Tensor]] = []
         # The event of the DMA that last read each ring buffer.
         self._read: List[Optional[torch.cuda.Event]] = [None] * RING
         self._copy_stream = None
@@ -145,37 +306,30 @@ class OfflineStaging:
                 "direct_chunks": self.direct_chunks}
 
     @staticmethod
-    def engages(planes: Dict[Optional[str], torch.Tensor], device) -> bool:
+    def engages(planes: Planes, device) -> bool:
         """Whether a clip (its planes; RGB under None) is staged: on the
-        host, of a staged dtype, bound for a CUDA device."""
+        host, each plane in a dtype the host dtype rule keeps, bound for a
+        CUDA device."""
         return (torch.device(device).type == "cuda"
-                and all(p.device.type == "cpu" and p.dtype in STAGED_DTYPES
+                and all(p.device.type == "cpu"
+                        and host_dtype(p.dtype) == p.dtype
                         for p in planes.values()))
 
-    def ring(self, planes: Dict[Optional[str], torch.Tensor],
-             per_slice: int) -> List[Dict[Optional[str], torch.Tensor]]:
+    def ring(self, planes: Planes, per_slice: int) -> List[Planes]:
         """The ring's buffers for frames like ``planes``' of
         ``per_slice`` frames a slice: kept when the signature is the last
         one, else (re)made once the DMAs that read the old ones are
         done."""
-        sig = (per_slice, tuple((k, tuple(p.shape[1:]), p.dtype)
-                                for k, p in planes.items()))
-        if sig == self._sig:
-            self.reuses += 1
-            return self._bufs
+        return self.take({k: ((per_slice,) + tuple(p.shape[1:]), p.dtype)
+                          for k, p in planes.items()}, RING, self._retire)
+
+    def _retire(self) -> None:
         for ev in self._read:
             if ev is not None:
                 ev.synchronize()
         self._read = [None] * RING
-        self._bufs = [{k: torch.empty((per_slice,) + tuple(p.shape[1:]),
-                                      dtype=p.dtype, pin_memory=self.pinned)
-                       for k, p in planes.items()} for _ in range(RING)]
-        self._sig = sig
-        self.allocs += 1
-        return self._bufs
 
-    def fill(self, planes: Dict[Optional[str], torch.Tensor], s0: int,
-             s1: int, buf: Dict[Optional[str], torch.Tensor],
+    def fill(self, planes: Planes, s0: int, s1: int, buf: Planes,
              threads: int) -> None:
         """Frames ``s0:s1`` of each plane into the head of its buffer,
         each plane's rows cut into ``threads`` parts for the fill threads;

@@ -51,22 +51,11 @@ import torch
 
 from vaudio_torch.config import AuralizerConfig, LiveParams
 from vaudio_torch.io.sources import own_frame
+from vaudio_torch.runtime.ingest import HostBuffers, host_frames, to_device
 from vaudio_torch.runtime.ringbuffer import make_ring_buffer
 from vaudio_torch.runtime.step import StepCarry
 from vaudio_torch.runtime.stream import StreamMetrics
 from vaudio_torch.utils.profiling import span
-
-
-def _normalize_frame(frame):
-    """Match the single-stream producer's ingest dtype policy
-    (runtime.stream): uint8 passes through (4x fewer bytes over the link),
-    everything else becomes float32; planar-YUV dicts per-plane."""
-    if isinstance(frame, dict):
-        return {k: np.asanyarray(v) for k, v in frame.items()}
-    frame = np.asanyarray(frame)
-    if frame.dtype != np.uint8:
-        frame = frame.astype(np.float32, copy=False)
-    return frame
 
 
 def _frame_sig(frame):
@@ -79,62 +68,6 @@ def _zeros_like_frame(frame):
     if isinstance(frame, dict):
         return {k: np.zeros_like(v) for k, v in frame.items()}
     return np.zeros_like(frame)
-
-
-def _plane(frame, key: Optional[str]):
-    """Plane ``key`` of a planar-YUV frame (None: the frame itself)."""
-    return frame if key is None else frame[key]
-
-
-def _host_dtype(dtype) -> torch.dtype:
-    """The torch dtype of a NumPy dtype."""
-    return torch.from_numpy(np.empty(0, dtype)).dtype
-
-
-class _TickStaging:
-    """The host staging buffer of a tick's frames, one buffer a leaf of the
-    tick's stacked signature: the (S, ...) frames, a chunked pod's (S, T,
-    ...), one a plane of a planar-YUV dict.  Page-locked when ``pinned``
-    (the engine on CUDA: the tick's copy to the card is then one direct
-    DMA); made at the first tick and re-made only when the signature
-    changes (a resize, a new frame contract).  Only the pod's producer
-    thread stacks, and the tick's put copies out of the buffer before the
-    next tick rewrites it."""
-
-    def __init__(self, pinned: bool):
-        self.pinned = pinned
-        self.allocs = 0        # buffers (re)made
-        self.reuses = 0        # ticks stacked into a kept buffer
-        self._sig = None
-        self._bufs: Dict[Optional[str], torch.Tensor] = {}
-
-    def stack(self, frames: Sequence, chunked: bool):
-        """A tick's frames, one a slot (chunked: each slot's list of
-        frames), written into the buffer (a copy: borrowed pool views are
-        consumed here).  Returns the buffer's tensor, or a dict of them a
-        plane."""
-        with span("vaudio.pod.stack"):
-            first = frames[0][0] if chunked else frames[0]
-            lead = ((len(frames), len(frames[0])) if chunked
-                    else (len(frames),))
-            sig = (lead, _frame_sig(first))
-            if sig == self._sig:
-                self.reuses += 1
-            else:
-                planes = first if isinstance(first, dict) else {None: first}
-                self._bufs = {k: torch.empty(
-                    lead + v.shape, dtype=_host_dtype(v.dtype),
-                    pin_memory=self.pinned) for k, v in planes.items()}
-                self._sig = sig
-                self.allocs += 1
-            for k, buf in self._bufs.items():
-                out = buf.numpy()
-                if chunked:
-                    for row, slot in zip(out, frames):
-                        np.stack([_plane(f, k) for f in slot], out=row)
-                else:
-                    np.stack([_plane(f, k) for f in frames], out=out)
-        return self._bufs[None] if None in self._bufs else dict(self._bufs)
 
 
 def _is_sharded(x) -> bool:
@@ -362,8 +295,7 @@ class MultiStreamAuralizer:
         #: The tick's host staging buffer (page-locked for a CUDA engine)
         #: and its counters, ``staging_allocs`` / ``staging_reuses`` in
         #: :meth:`metrics_dict`.
-        self._staging = _TickStaging(
-            pinned=torch.device(engine.device).type == "cuda")
+        self._staging = HostBuffers(engine.device)
         self._metrics_log = metrics_log
         self._metrics_fh = None
         #: When True (set by :meth:`serve` / PodServer.start, reset by
@@ -415,17 +347,17 @@ class MultiStreamAuralizer:
         return shard_put(self._mesh, tree)
 
     def _put_frames(self, staged):
-        """The tick's staged frames as the step's batch, never sharing the
-        staging buffer's memory: one synchronous copy of the buffer's
-        tensors to the engine's device (complete when this returns, so
-        the next tick may rewrite the buffer; a copy on the CPU too, where
-        ``.to`` alone would hand back the buffer).  Under a mesh, NumPy
-        views of the buffer to :meth:`_shard_put`, which copies each shard
-        synchronously."""
-        from vaudio_torch.parallel.sharding import _tree_map
+        """The tick's staged frames as the step's batch, by a synchronous
+        copy that never shares the staging buffer's memory (the next tick
+        rewrites it); under a mesh, by :meth:`_put_shards`."""
         if self._mesh is None:
-            dev = self.engine.device
-            return _tree_map(lambda t: t.to(dev, copy=True), staged)
+            return to_device(staged, self.engine.device, copy=True)
+        return to_device(staged, put=self._put_shards)
+
+    def _put_shards(self, staged):
+        """NumPy views of the staging buffer to :meth:`_shard_put`, which
+        copies each shard synchronously."""
+        from vaudio_torch.parallel.sharding import _tree_map
         return self._shard_put(_tree_map(torch.Tensor.numpy, staged))
 
     def _local_carry(self):
@@ -844,7 +776,7 @@ class MultiStreamAuralizer:
         ``None`` when acceptable.  A frame rejected here would otherwise
         dark its slot at dispatch time (:meth:`_fail_slot`)."""
         try:
-            fr = _normalize_frame(frame)
+            fr = host_frames(frame)
         except Exception as e:
             return f"undecodable frame: {type(e).__name__}: {e}"
         err = self.engine.frame_error(fr, self.cfg)
@@ -1022,7 +954,7 @@ class MultiStreamAuralizer:
             if fr is None:
                 continue                     # idle tick: dark but alive
             try:
-                fr = _normalize_frame(fr)
+                fr = host_frames(fr)
                 sig = _frame_sig(fr)
                 if self._template_sig is None:
                     self._template_sig = sig
@@ -1131,13 +1063,28 @@ class MultiStreamAuralizer:
                         raise ValueError(err)
                     self._carry_checked = True
             params = self._stack_params()
-            with span("vaudio.ingest.frames"):
-                batch = self._put_frames(stacked)
+            batch = self._put_frames(stacked)
             with self._carry_lock, span("vaudio.step"):
                 self._carry, out = self._step(self._carry, batch, params)
             if pending is not None:
                 self._flush(pending)
             pending = (out, t0, masks)
+
+        def dispatch_chunk():
+            # The held chunk, padded with black frames to the static chunk
+            # shape where it is partial (masks keep the padding out of the
+            # rings), is dispatched and let go.
+            nonlocal chunk_bufs, chunk_mask
+            pad = T - len(chunk_bufs[0])
+            for i in range(self.n_streams):
+                chunk_bufs[i].extend([self._zeros] * pad)
+                chunk_mask[i].extend([False] * pad)
+            with span("vaudio.pod.stack"):
+                stacked = self._staging.stack(chunk_bufs, chunked=True)
+            dispatch(stacked, chunk_t0 or time.monotonic(),
+                     [list(m) for m in chunk_mask])
+            chunk_bufs = [[] for _ in range(self.n_streams)]
+            chunk_mask = [[] for _ in range(self.n_streams)]
 
         while not self._stop_event.is_set():
             # Elastic resize lands at a dispatch boundary: a held partial
@@ -1175,13 +1122,7 @@ class MultiStreamAuralizer:
             if req is not None:
                 try:
                     if chunk_bufs[0]:
-                        pad = T - len(chunk_bufs[0])
-                        for i in range(self.n_streams):
-                            chunk_bufs[i].extend([self._zeros] * pad)
-                            chunk_mask[i].extend([False] * pad)
-                        dispatch(self._staging.stack(chunk_bufs, chunked=True),
-                                 chunk_t0 or time.monotonic(),
-                                 [list(m) for m in chunk_mask])
+                        dispatch_chunk()
                     if pending is not None:
                         self._flush(pending)
                         pending = None
@@ -1276,8 +1217,9 @@ class MultiStreamAuralizer:
                     # The stack copies the (possibly zero-copy-borrowed)
                     # frames into the staging buffer within the tick, inside
                     # the sources' lag-2 window.
-                    dispatch(self._staging.stack(frames, chunked=False),
-                             time.monotonic(), [[r] for r in real])
+                    with span("vaudio.pod.stack"):
+                        stacked = self._staging.stack(frames)
+                    dispatch(stacked, time.monotonic(), [[r] for r in real])
                     continue
                 if not any(chunk_bufs):
                     chunk_t0 = time.monotonic()
@@ -1287,22 +1229,11 @@ class MultiStreamAuralizer:
                     chunk_bufs[i].append(own_frame(frames[i]))
                     chunk_mask[i].append(real[i])
                 if len(chunk_bufs[0]) >= T:
-                    dispatch(self._staging.stack(chunk_bufs, chunked=True),
-                             chunk_t0 or time.monotonic(),
-                             [list(m) for m in chunk_mask])
-                    chunk_bufs = [[] for _ in range(self.n_streams)]
-                    chunk_mask = [[] for _ in range(self.n_streams)]
+                    dispatch_chunk()
 
-        # Trailing partial chunk: pad with black frames to the static
-        # chunk shape; only real hops are written.
+        # Trailing partial chunk: only its real hops are written.
         if any(chunk_bufs) and not self._stop_event.is_set():
-            pad = T - len(chunk_bufs[0])
-            for i in range(self.n_streams):
-                chunk_bufs[i].extend([self._zeros] * pad)
-                chunk_mask[i].extend([False] * pad)
-            dispatch(self._staging.stack(chunk_bufs, chunked=True),
-                     chunk_t0 or time.monotonic(),
-                     [list(m) for m in chunk_mask])
+            dispatch_chunk()
         if pending is not None and not self._stop_event.is_set():
             self._flush(pending)
         self._running = False

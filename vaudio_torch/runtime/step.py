@@ -18,6 +18,8 @@ from vaudio_torch.dsp.core import (agc_normalize, hann_window_norm,
                                    irfft_from_half, irfft_from_half_dense,
                                    overlap_add)
 from vaudio_torch.ops.audio_kernel import agc_overlap_add
+from vaudio_torch.runtime.ingest import (check_frames, frame_at,
+                                         frames_slice, num_frames, to_device)
 from vaudio_torch.synth.spectrum import (SynthConstants, build_spectrum,
                                          phase_accumulate)
 from vaudio_torch.utils.profiling import span
@@ -178,75 +180,12 @@ def make_step(cfg: AuralizerConfig, debug: bool = False, jit: bool = True,
     def step(carry, frame, params):
         batch = ({k: v[None] for k, v in frame.items()}
                  if isinstance(frame, dict) else frame[None])
-        return frame_step(carry, frame_at(frames_to_device(batch, dev), 0),
+        batch = to_device(check_frames(batch), dev)
+        return frame_step(carry, frame_at(batch, 0),
                           params_to_device(params, cfg, dev), cfg, consts,
                           window, debug=debug)
 
     return step
-
-
-def check_frames(frames):
-    """A clip as tensors, not yet moved (a numpy array is shared, not
-    copied): RGB (T, H, W, 3), or a dict ``{"y", "u", "v"}`` of planar
-    YUV 4:2:0 (T, H, W), (T, H/2, W/2)."""
-    if isinstance(frames, dict):
-        planes = {k: _as_tensor(frames[k]) for k in ("y", "u", "v")}
-        y = planes["y"]
-        if y.ndim != 3 or any(planes[k].shape[0] != y.shape[0]
-                              or planes[k].ndim != 3 for k in ("u", "v")):
-            raise ValueError(f"expected YUV planes y [T, H, W], u and v "
-                             f"[T, H/2, W/2]; got shapes "
-                             f"{[tuple(p.shape) for p in planes.values()]}")
-        return planes
-    frames = _as_tensor(frames)
-    if frames.ndim != 4 or frames.shape[-1] != 3:
-        raise ValueError(f"expected frames [T, H, W, 3]; got shape "
-                         f"{tuple(frames.shape)}")
-    return frames
-
-
-def _as_tensor(x):
-    return x if isinstance(x, torch.Tensor) else torch.as_tensor(
-        np.asarray(x))
-
-
-def num_frames(frames) -> int:
-    """T of a clip: RGB frames or a dict of YUV planes."""
-    return len(frames["y"] if isinstance(frames, dict) else frames)
-
-
-def frame_at(frames, t: int):
-    """Frame ``t`` of a clip: (H, W, 3), or a dict of its YUV planes."""
-    if isinstance(frames, dict):
-        return {k: v[t] for k, v in frames.items()}
-    return frames[t]
-
-
-def frames_slice(frames, start: int, end: int):
-    """Frames ``start:end`` of a clip (each plane of a YUV dict)."""
-    if isinstance(frames, dict):
-        return {k: v[start:end] for k, v in frames.items()}
-    return frames[start:end]
-
-
-def frames_to_device(frames, device):
-    """A clip as tensors on ``device``: RGB (T, H, W, 3), u8 staying u8
-    and any other type becoming f32, or a dict of YUV planes, each moved
-    as it is."""
-    frames = check_frames(frames)
-    first = frames["y"] if isinstance(frames, dict) else frames
-    if first.device.type != "cpu" or torch.device(device).type == "cpu":
-        return _frames_to(frames, device)
-    with span("vaudio.ingest.frames"):                  # host to card
-        return _frames_to(frames, device)
-
-
-def _frames_to(frames, device):
-    if isinstance(frames, dict):
-        return {k: v.to(device) for k, v in frames.items()}
-    if frames.dtype != torch.uint8:
-        frames = frames.to(torch.float32)
-    return frames.to(device)
 
 
 def run_offline(frames, cfg: AuralizerConfig,
@@ -261,7 +200,7 @@ def run_offline(frames, cfg: AuralizerConfig,
     debug_dict of stacked per-frame hues/grads/spectra when ``debug``).
     """
     dev = pick_device(device)
-    frames = frames_to_device(frames, dev)
+    frames = to_device(check_frames(frames), dev)
     params = params_to_device(params, cfg, dev)
     carry = init_carry(cfg, dev) if carry is None \
         else carry_from_numpy(carry, dev)

@@ -28,7 +28,8 @@ import numpy as np
 import torch
 
 from vaudio_torch.config import AuralizerConfig, LiveParams
-from vaudio_torch.io.sources import BorrowedFrame, own_frame
+from vaudio_torch.io.sources import own_frame
+from vaudio_torch.runtime.ingest import HostBuffers, host_frames, to_device
 from vaudio_torch.runtime.ringbuffer import make_ring_buffer
 from vaudio_torch.utils.profiling import span
 
@@ -127,6 +128,8 @@ class StreamingAuralizer:
         self._step = engine.make_step()
         self._chunk_step = (engine.make_chunk_step()
                             if self.chunk_frames > 1 else None)
+        # The host buffer a chunk is stacked into, made at the first chunk.
+        self._staging = HostBuffers(engine.device)
         # An engine whose carry is sized by the frame (carry_static False)
         # builds it at the first dispatch.
         self._carry = engine.init_carry() if engine.carry_static else None
@@ -331,19 +334,6 @@ class StreamingAuralizer:
 
     # -- producer ----------------------------------------------------------
 
-    def _to_device(self, frame):
-        """One host frame (or a dict of its YUV planes) as tensors on the
-        engine's device.  On the CPU ``torch.as_tensor`` shares host
-        memory, so a borrowed (pool) frame is copied; to the card, a
-        pageable copy has consumed the host memory when it returns."""
-        with span("vaudio.ingest.frames"):
-            if isinstance(frame, dict):
-                return {k: self._to_device(v) for k, v in frame.items()}
-            dev = self.engine.device
-            if dev.type == "cpu" and isinstance(frame, BorrowedFrame):
-                frame = np.array(frame)
-            return torch.as_tensor(np.asarray(frame)).to(dev)
-
     def _producer_loop(self, frames: Iterator[np.ndarray]) -> None:
         frame_period = 1.0 / self.cfg.video_fps
         next_deadline = time.monotonic()
@@ -408,14 +398,13 @@ class StreamingAuralizer:
                 params_arrays = self.engine.params_arrays(self.params)
                 if len(frames_np) == 1:
                     step = self._step
-                    frames_dev = self._to_device(frames_np[0])
+                    frames_dev = to_device(frames_np[0], self.engine.device)
                 else:
-                    if isinstance(frames_np[0], dict):   # planar YUV chunks
-                        batch = {k: np.stack([f[k] for f in frames_np])
-                                 for k in frames_np[0]}
-                    else:
-                        batch = np.stack(frames_np)
-                    step, frames_dev = self._chunk_step, self._to_device(batch)
+                    # Out of the kept chunk buffer by a synchronous copy,
+                    # so the next chunk may rewrite it.
+                    step = self._chunk_step
+                    frames_dev = to_device(self._staging.stack(frames_np),
+                                           self.engine.device, copy=True)
                 with self._carry_lock:
                     if self._carry is None:
                         # A frame-sized carry: built from the first frame, and
@@ -460,15 +449,10 @@ class StreamingAuralizer:
                     time.sleep(next_deadline - now)
                 next_deadline = max(next_deadline + frame_period,
                                     time.monotonic())
-            # asanyarray keeps the BorrowedFrame marker of a pool view.
-            if isinstance(frame, dict):         # planar YUV 4:2:0
-                frame_np = {k: np.asanyarray(v) for k, v in frame.items()}
-                shape = tuple(frame_np["y"].shape)
-            else:
-                frame_np = np.asanyarray(frame)
-                if frame_np.dtype != np.uint8:  # u8 ships 4x fewer bytes
-                    frame_np = frame_np.astype(np.float32, copy=False)
-                shape = tuple(frame_np.shape)
+            # The BorrowedFrame marker of a pool view is kept.
+            frame_np = host_frames(frame)
+            shape = tuple((frame_np["y"] if isinstance(frame_np, dict)
+                           else frame_np).shape)
             if last_shape is not None and shape != last_shape:
                 # Mid-stream resolution change: flush the partial chunk at
                 # the old shape as single steps (frames of two shapes do

@@ -23,10 +23,10 @@ import torch.autograd.profiler as _autograd_profiler
 #:
 #: * ``vaudio.sonify``: one offline ``Auralizer.sonify`` call.
 #: * ``vaudio.ingest.frames``: a host-to-device copy of frames (the
-#:   offline chunk's, the stream's frame or chunk, the pod's tick); a
-#:   pageable copy holds the host for its length.
+#:   offline chunk's, the stream's frame or chunk, the pod's tick), all in
+#:   ``runtime.ingest``; a pageable copy holds the host for its length.
 #: * ``vaudio.ingest.stage``: one fill thread's share of an offline slice's
-#:   copy into the page-locked ring (``runtime.staging``); the dispatching
+#:   copy into the page-locked ring (``runtime.ingest``); the dispatching
 #:   thread waits for the ring inside ``vaudio.ingest.frames``.
 #: * ``vaudio.ingest.params``: a dispatch's copies of the live parameters.
 #: * ``vaudio.step``: one frame, chunk or pod tick through the runtime
