@@ -620,7 +620,8 @@ def test_public_names_equal_jax():
 
 
 #: Keys of the port's metrics_dict that the JAX pod lacks.
-PORT_METRICS = ("staging_allocs", "staging_reuses")
+PORT_METRICS = ("staging_allocs", "staging_reuses", "graph_captures",
+                "graph_replays", "eager_steps")
 
 
 def _script(mod, url):

@@ -277,13 +277,16 @@ def test_trailing_shrink_target_matches_jax(n, free, stop, held, mesh_step):
 
 def test_metrics_surface_matches_jax():
     """metrics_dict and stream_metrics carry the JAX pod's keys (and the
-    port's two staging counters), and the frame signature its format."""
+    port's two staging counters and its tick step's three graph
+    counters), and the frame signature its format."""
     srcs = clips(2, 2)
     ref = run(jax_multistream.MultiStreamAuralizer(
         JaxConfig(), n_streams=2, prefer_native=False), srcs)
     got = run(pod(n_streams=2), srcs)
     jm, pm = ref.metrics_dict(), got.metrics_dict()
-    assert set(pm) == set(jm) | {"staging_allocs", "staging_reuses"}
+    assert set(pm) == set(jm) | {"staging_allocs", "staging_reuses",
+                                 "graph_captures", "graph_replays",
+                                 "eager_steps"}
     assert set(pm["slots"][0]) == set(jm["slots"][0])
     assert pm["frame_sig"] == jm["frame_sig"]
     for k in ("n_streams", "frames_processed", "dispatches", "free_slots"):

@@ -616,8 +616,9 @@ def both_panels():
 
 
 #: Keys of the port's metrics_dict that the JAX pod lacks: the tick
-#: staging counters.
-PORT_METRICS = ("staging_allocs", "staging_reuses")
+#: staging counters and the tick step's graph counters.
+PORT_METRICS = ("staging_allocs", "staging_reuses", "graph_captures",
+                "graph_replays", "eager_steps")
 
 
 def _prom_series(text):

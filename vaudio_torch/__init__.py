@@ -54,5 +54,22 @@ def device(spec=None) -> torch.device:
     return torch.device("cuda")
 
 
+# Keyed by (key, device); never emptied (see device_constant).
+_CONSTANTS: dict = {}
+
+
+def device_constant(key, make, dev) -> torch.Tensor:
+    """``make()`` (a host array) as a tensor on ``dev``, copied once per
+    ``(key, dev)`` and kept for the life of the process.  A step captured
+    in a CUDA graph (``runtime.step.GraphedStep``) reads such a constant
+    at every replay through the address it had at the capture, so it is
+    never freed; and the step copies nothing from the host."""
+    k = (key, str(dev))
+    t = _CONSTANTS.get(k)
+    if t is None:
+        t = _CONSTANTS.setdefault(k, torch.as_tensor(make(), device=dev))
+    return t
+
+
 __all__ = ["AuralizerConfig", "DEFAULT_CONFIG", "LiveParams", "__version__",
            "device"]

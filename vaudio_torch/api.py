@@ -303,6 +303,9 @@ class Auralizer:
             "warmed_up": bool(ring.warmed_up),
             "dropped_frames": ring.dropped_frames,
             "underrun_samples": ring.underrun_samples,
+            # The per-frame step's CUDA graph captures and replays, and
+            # its eager steps (runtime.step.GraphedStep).
+            **m.step_counts(),
         }
 
     def ingest_metrics(self) -> Dict[str, int]:

@@ -28,7 +28,8 @@ class AuralizerModel:
         self.config = config or AuralizerConfig()
         self.device = pick_device(device)
         self.step = make_step(self.config, debug=debug, device=self.device)
-        # PyTorch runs eagerly: the JAX package's unjitted twin is the same.
+        # The JAX package's unjitted twin: a replay of the step's CUDA graph
+        # gives the eager step's bits, so it is the same step.
         self.eager_step = self.step
 
     def init_state(self) -> StepCarry:

@@ -25,6 +25,7 @@ import functools
 import numpy as np
 import torch
 
+from vaudio_torch import device_constant
 from vaudio_torch.config import AuralizerConfig
 from vaudio_torch.ops import _build
 # The module, not its names: vision.features imports this package, so its
@@ -50,12 +51,6 @@ def block_rects(hm: int, wm: int, grid: int) -> np.ndarray:
     out = np.array(tiles + bands, dtype=np.int32)
     out.setflags(write=False)
     return out
-
-
-@functools.lru_cache(maxsize=32)
-def _device_rects(hm: int, wm: int, grid: int, device) -> torch.Tensor:
-    """:func:`block_rects` on the device, copied once per shape."""
-    return torch.as_tensor(block_rects(hm, wm, grid).copy(), device=device)
 
 
 def kernel_takes(hm: int, wm: int, cfg: AuralizerConfig) -> bool:
@@ -113,7 +108,9 @@ def vision_stats(mips, cfg: AuralizerConfig):
     if bins * 4 > 227 * 1024:
         raise ValueError(f"vision_stats: a histogram of {bins} bins does "
                          f"not fit one block's shared memory")
-    rects = _device_rects(hm, wm, cfg.grid_size, mips.device)
+    rects = device_constant(("k3_rects", hm, wm, cfg.grid_size),
+                            lambda: block_rects(hm, wm, cfg.grid_size).copy(),
+                            mips.device)
     hist = torch.empty((T, cells, bins), dtype=torch.float32,
                        device=mips.device)
     grads = torch.empty((T, cells, 4), dtype=torch.float32,

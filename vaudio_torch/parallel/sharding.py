@@ -304,7 +304,7 @@ def make_batched_step(cfg: AuralizerConfig, debug: bool = False,
     card unless given).  ``jit`` is accepted and does nothing."""
     from vaudio_torch.runtime.engine import AuralizerEngine
     eng = AuralizerEngine(cfg, debug=debug, device=device)
-    raw = eng.raw_step()
+    raw = eng.raw_step().eager
 
     def step(carry, frames, params):
         frames = _tree_map(lambda x: _put_leaf(x, eng.device), frames)
@@ -443,7 +443,10 @@ def _engine_step(engine, mesh: StreamMesh, chunk: bool,
         if dev not in steps:
             eng = engine if _norm_device(engine.device) == dev \
                 else engine.on_device(dev)
-            steps[dev] = eng.raw_chunk_step() if chunk else eng.raw_step()
+            step = eng.raw_chunk_step() if chunk else eng.raw_step()
+            # The flagship's frame step, eager (a mesh step captures no
+            # graph).
+            steps[dev] = getattr(step, "eager", step)
 
     def run_row(r, carry, frames, params):
         return steps[mesh.devices[r, 0]](carry, frames, params)

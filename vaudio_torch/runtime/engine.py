@@ -66,11 +66,22 @@ class AuralizerEngine:
         return make_chunk_pipeline(self.cfg, debug=self.debug,
                                    device=self.device)
 
-    def _batched(self, fn, debug: bool):
-        """``step(carry, frames, params)`` running ``fn`` (frame_step or
-        chunk_pipeline) on a stream axis, with the constants and the
-        window built once on the engine's device."""
+    def raw_step(self):
+        """``step(carry, frames, params)`` over a pod's S streams: one
+        frame a stream, (S, H, W, 3) or planes (S, ...), through the
+        stream-batched :func:`runtime.step.frame_step` as a
+        :class:`runtime.step.GraphedStep` (a captured CUDA graph on a
+        card)."""
+        from vaudio_torch.runtime.step import GraphedStep
+        return GraphedStep(self.cfg, self.device, debug=self.debug)
+
+    def raw_chunk_step(self):
+        """``step(carry, frames, params)`` over a pod's S streams of N
+        frames, (S, N, H, W, 3) or planes (S, N, ...), through the
+        stream-batched :func:`runtime.chunked.chunk_pipeline`, with the
+        constants and the window built once on the engine's device."""
         from vaudio_torch.dsp.core import hann_window_norm
+        from vaudio_torch.runtime.chunked import chunk_pipeline
         from vaudio_torch.runtime.step import params_to_device
         from vaudio_torch.synth.spectrum import SynthConstants
         cfg, dev = self.cfg, self.device
@@ -78,23 +89,10 @@ class AuralizerEngine:
         window = torch.as_tensor(hann_window_norm(cfg.nfft), device=dev)
 
         def step(carry, frames, params):
-            return fn(carry, frames, params_to_device(params, cfg, dev), cfg,
-                      consts, window, debug=debug)
+            return chunk_pipeline(carry, frames,
+                                  params_to_device(params, cfg, dev), cfg,
+                                  consts, window)
         return step
-
-    def raw_step(self):
-        """``step(carry, frames, params)`` over a pod's S streams: one
-        frame a stream, (S, H, W, 3) or planes (S, ...), through the
-        stream-batched :func:`runtime.step.frame_step`."""
-        from vaudio_torch.runtime.step import frame_step
-        return self._batched(frame_step, self.debug)
-
-    def raw_chunk_step(self):
-        """``step(carry, frames, params)`` over a pod's S streams of N
-        frames, (S, N, H, W, 3) or planes (S, N, ...), through the
-        stream-batched :func:`runtime.chunked.chunk_pipeline`."""
-        from vaudio_torch.runtime.chunked import chunk_pipeline
-        return self._batched(chunk_pipeline, False)
 
     def init_carry(self, frame=None):
         from vaudio_torch.runtime.step import init_carry

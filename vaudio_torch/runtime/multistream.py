@@ -230,7 +230,7 @@ class MultiStreamAuralizer:
                                        cfg.warmup_frames,
                                        prefer_native=prefer_native)
                       for _ in range(self.n_streams)]
-        self.metrics = StreamMetrics()
+        self.metrics = StreamMetrics(self._step)
         self._sources: List = [None] * self.n_streams
         self._active = [False] * self.n_streams
         #: Per-slot source failures (slot isolation: one client's bad
@@ -884,6 +884,9 @@ class MultiStreamAuralizer:
             # often a tick stacked into the kept one.
             "staging_allocs": self._staging.allocs,
             "staging_reuses": self._staging.reuses,
+            # The tick's step: CUDA graph captures and replays, and eager
+            # steps (runtime.step.GraphedStep; zeros for other steps).
+            **m.step_counts(),
             # Placement signals: current free slots, the growth headroom
             # to the cap, and the pod's static frame contract.
             "free_slots": len(self.free_slots()),

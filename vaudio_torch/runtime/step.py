@@ -3,10 +3,16 @@ of :mod:`vaudio.runtime.step`.
 
 The recurrent DSP state is an explicit :class:`StepCarry` of tensors with
 the JAX package's fields and shapes; ``lax.scan`` becomes a Python loop.
+Where ``jax.jit`` compiles the step, the live stream's and the pod's step
+(:class:`GraphedStep`) replays it on a card as a captured CUDA graph.
 """
 
 from __future__ import annotations
 
+import collections
+import sys
+import threading
+import traceback
 from typing import Any, Dict, NamedTuple, Optional
 
 import numpy as np
@@ -17,6 +23,8 @@ from vaudio_torch.config import AuralizerConfig, LiveParams
 from vaudio_torch.dsp.core import (agc_normalize, hann_window_norm,
                                    irfft_from_half, irfft_from_half_dense,
                                    overlap_add)
+from vaudio_torch.ops import (audio_kernel, pool_kernel, spectrum_kernel,
+                              vision_kernel)
 from vaudio_torch.ops.audio_kernel import agc_overlap_add
 from vaudio_torch.runtime.ingest import (check_frames, frame_at,
                                          frames_slice, num_frames, to_device)
@@ -170,22 +178,254 @@ def make_step(cfg: AuralizerConfig, debug: bool = False, jit: bool = True,
     constants and the window built once on ``device`` (the JAX package's
     ``make_step``).  ``frame`` is one (H, W, 3) frame, u8 or f32, on the
     host or the device; ``params`` live params as host values or as from
-    :func:`params_to_device`.  ``jit`` is accepted and does nothing:
-    PyTorch runs eagerly.  Every call returns new tensors and leaves the
-    carry it was given untouched."""
-    dev = pick_device(device)
-    consts = SynthConstants.create(cfg, dev)
-    window = torch.as_tensor(hann_window_norm(cfg.nfft), device=dev)
+    :func:`params_to_device`.  Once the frame is on the device the step is
+    a :class:`GraphedStep`: a captured CUDA graph replayed on a card, and
+    eager on the CPU, with the same bits either way;
+    ``step.counts()`` gives its counters.  ``jit`` is accepted and does
+    nothing.  Every call returns new tensors and leaves the carry it was
+    given untouched."""
+    graphed = GraphedStep(cfg, device, debug=debug)
 
     def step(carry, frame, params):
         batch = ({k: v[None] for k, v in frame.items()}
                  if isinstance(frame, dict) else frame[None])
-        batch = to_device(check_frames(batch), dev)
-        return frame_step(carry, frame_at(batch, 0),
-                          params_to_device(params, cfg, dev), cfg, consts,
-                          window, debug=debug)
+        batch = to_device(check_frames(batch), graphed.device)
+        return graphed(carry, frame_at(batch, 0), params)
 
+    step.counts = graphed.counts
     return step
+
+
+#: The kernels' launch counters, (module, attribute) each: a replay adds
+#: what its capture counted, so that they count the launches that ran.
+LAUNCH_COUNTERS = ((pool_kernel, "launches"),
+                   (pool_kernel, "planar_launches"),
+                   (pool_kernel, "yuv_launches"),
+                   (spectrum_kernel, "launches"),
+                   (vision_kernel, "launches"),
+                   (audio_kernel, "launches"))
+
+
+def _launch_counts():
+    return [getattr(m, name) for m, name in LAUNCH_COUNTERS]
+
+
+def _add_launches(counts) -> None:
+    for (m, name), n in zip(LAUNCH_COUNTERS, counts):
+        setattr(m, name, getattr(m, name) + n)
+
+
+#: The counters of a :class:`GraphedStep` (:meth:`GraphedStep.counts`).
+STEP_COUNTS = ("graph_captures", "graph_replays", "eager_steps")
+
+
+def step_counts(step) -> Dict[str, int]:
+    """The counters of ``step`` (:meth:`GraphedStep.counts`, carried by
+    :func:`make_step`'s step too); zeros for a step without them."""
+    counts = getattr(step, "counts", None)
+    return counts() if counts is not None else dict.fromkeys(STEP_COUNTS, 0)
+
+
+def _shape(x) -> tuple:
+    return tuple(x.shape) if isinstance(x, torch.Tensor) else np.shape(x)
+
+
+def step_signature(carry: StepCarry, frame, params: Dict[str, Any],
+                   device) -> tuple:
+    """What a captured :func:`frame_step` is specific to: the frame's
+    layout (an RGB tensor or a dict of YUV planes), shapes and dtypes; the
+    stream axis S (None for a single stream) and the carry's shapes and
+    dtypes; the params' keys and dims; the device."""
+    if isinstance(frame, dict):
+        layout = ("yuv",) + tuple((k, tuple(v.shape), v.dtype)
+                                  for k, v in sorted(frame.items()))
+    else:
+        layout = ("rgb", tuple(frame.shape), frame.dtype)
+    rm = carry.running_max
+    return (layout, rm.shape[0] if rm.dim() == 1 else None,
+            tuple((tuple(x.shape), x.dtype) for x in carry),
+            tuple(sorted((k, _shape(v)) for k, v in params.items())),
+            torch.device(device))
+
+
+def _empty_like(x):
+    return torch.empty_like(x, memory_format=torch.contiguous_format)
+
+
+class _Captured:
+    """One signature's CUDA graph: the static inputs, which every replay
+    first fills, and the outputs, which every replay overwrites."""
+
+    def __init__(self, carry: StepCarry, frame, params: Dict[str, Any],
+                 device):
+        self.graph = torch.cuda.CUDAGraph()
+        self.frame = ({k: _empty_like(v) for k, v in frame.items()}
+                      if isinstance(frame, dict) else _empty_like(frame))
+        self.carry = StepCarry(*(_empty_like(x) for x in carry))
+        shapes = {k: _shape(v) for k, v in params.items()}
+        sizes = [int(np.prod(s, dtype=np.int64)) for s in shapes.values()]
+        # Every param a view of one buffer, which one copy fills.
+        self.packed = torch.empty(sum(sizes), dtype=torch.float32,
+                                  device=device)
+        self.params, at = {}, 0
+        for (k, shape), n in zip(shapes.items(), sizes):
+            self.params[k] = self.packed[at:at + n].view(shape)
+            at += n
+        self.out = None             # (carry, out) of the captured step
+        self.launches = None        # the kernels' launches of one replay
+
+    def fill(self, carry: StepCarry, frame, params: Dict[str, Any]) -> None:
+        """Copy a call's inputs into the static buffers, on the current
+        stream, so after the previous replay: the params' host values in
+        one page-locked copy, the frame and the carry device to device."""
+        if any(isinstance(v, torch.Tensor) for v in params.values()):
+            for k, v in params.items():
+                self.params[k].copy_(torch.as_tensor(v))
+        else:
+            with span("vaudio.ingest.params"):
+                host = np.concatenate([np.asarray(params[k], np.float32)
+                                       .ravel() for k in self.params])
+                self.packed.copy_(torch.from_numpy(host).pin_memory(),
+                                  non_blocking=True)
+        if isinstance(frame, dict):
+            for k, v in frame.items():
+                self.frame[k].copy_(v)
+        else:
+            self.frame.copy_(frame)
+        for static, x in zip(self.carry, carry):
+            static.copy_(x)
+
+
+class GraphedStep:
+    """:func:`frame_step` with its synthesis constants and window built
+    once on ``device`` (the card unless given), as ``step(carry, frame,
+    params) -> (carry, out)``: ``frame`` on the device, one (H, W, 3)
+    frame or a dict of its YUV planes, or with a stream axis one frame of
+    each of S streams (:func:`frame_step`); ``params`` host values or
+    tensors.
+
+    On a CUDA device, the first call of each input signature
+    (:func:`step_signature`) runs the step eagerly on a side stream,
+    returns that result and captures the step on the same stream as a CUDA
+    graph.  Every later call of the signature copies its inputs into the
+    graph's static buffers, replays the graph (span ``vaudio.step.replay``)
+    and returns copies of the outputs (with ``debug`` the hues, gradients
+    and spectrum too), so that a result outlives the next replay and the
+    caller's carry is never written.  A replay launches the eager step's
+    kernels in its order with its arguments, so its bits are the eager
+    step's; the kernels' launch counters (:data:`LAUNCH_COUNTERS`) count
+    each replay's launches.  The newest :attr:`KEEP` signatures keep their
+    graphs.  On the CPU every call runs eagerly (:meth:`eager`); so does a
+    signature whose capture failed, which says so once on stderr.  Calls
+    are serialised by a lock."""
+
+    #: Signatures whose graphs are kept: a shape that flaps between two
+    #: values captures twice, a third signature frees the oldest graph.
+    KEEP = 2
+
+    def __init__(self, cfg: AuralizerConfig, device=None,
+                 debug: bool = False):
+        self.cfg = cfg
+        self.device = pick_device(device)
+        self.debug = debug
+        self.consts = SynthConstants.create(cfg, self.device)
+        self.window = torch.as_tensor(hann_window_norm(cfg.nfft),
+                                      device=self.device)
+        self.graph_captures = self.graph_replays = self.eager_steps = 0
+        # signature -> _Captured, or None where the capture failed
+        self._graphs: collections.OrderedDict = collections.OrderedDict()
+        self._stream = None         # the side stream of every capture
+        self._lock = threading.Lock()
+
+    @property
+    def graphed(self) -> bool:
+        """Whether calls capture and replay graphs: on a CUDA device."""
+        return self.device.type == "cuda"
+
+    def counts(self) -> Dict[str, int]:
+        """Calls that captured a graph, that replayed one, and that ran
+        eagerly."""
+        return {"graph_captures": self.graph_captures,
+                "graph_replays": self.graph_replays,
+                "eager_steps": self.eager_steps}
+
+    def eager(self, carry: StepCarry, frame, params: Dict[str, Any]):
+        """The step run eagerly (the mesh steps of ``parallel`` take
+        it)."""
+        return frame_step(carry, frame,
+                          params_to_device(params, self.cfg, self.device),
+                          self.cfg, self.consts, self.window,
+                          debug=self.debug)
+
+    def __call__(self, carry: StepCarry, frame, params: Dict[str, Any]):
+        if params is None:
+            params = default_params(self.cfg)
+        if not self.graphed:
+            with self._lock:
+                self.eager_steps += 1
+            return self.eager(carry, frame, params)
+        sig = step_signature(carry, frame, params, self.device)
+        with self._lock, torch.cuda.device(self.device):
+            if sig not in self._graphs:
+                return self._capture(sig, carry, frame, params)
+            self._graphs.move_to_end(sig)
+            g = self._graphs[sig]
+            if g is None:
+                self.eager_steps += 1
+                return self.eager(carry, frame, params)
+            with span("vaudio.step.replay"):
+                g.fill(carry, frame, params)
+                g.graph.replay()
+                new = StepCarry(*(x.clone() for x in g.out[0]))
+                out = {k: v.clone() for k, v in g.out[1].items()}
+            _add_launches(g.launches)
+            self.graph_replays += 1
+            return new, out
+
+    def _run(self, g: _Captured):
+        return frame_step(g.carry, g.frame, g.params, self.cfg, self.consts,
+                          self.window, debug=self.debug)
+
+    def _capture(self, sig, carry: StepCarry, frame, params):
+        """The eager step on the static inputs, on the side stream (its
+        result is this call's), then the capture on the same stream."""
+        g = _Captured(carry, frame, params, self.device)
+        g.fill(carry, frame, params)
+        if self._stream is None:
+            self._stream = torch.cuda.Stream()
+        side, current = self._stream, torch.cuda.current_stream()
+        side.wait_stream(current)
+        # The outer context restores the caller's stream even where a
+        # failed capture leaves the graph's own context open.
+        with torch.cuda.stream(side):
+            new, out = self._run(g)
+            before = _launch_counts()
+            try:
+                with torch.cuda.graph(g.graph, stream=side,
+                                      capture_error_mode="thread_local"):
+                    g.out = self._run(g)
+                self.graph_captures += 1
+            except Exception:
+                # A stream must keep running: this signature runs eagerly.
+                g = None
+                self.eager_steps += 1
+                print("vaudio_torch: capturing the step as a CUDA graph "
+                      "failed; its input signature runs eagerly:\n"
+                      + traceback.format_exc(), file=sys.stderr)
+            finally:
+                # The capture launched nothing: replays count its launches.
+                counted = [a - b for a, b in zip(_launch_counts(), before)]
+                _add_launches([-n for n in counted])
+        current.wait_stream(side)
+        for x in (*new, *out.values()):
+            x.record_stream(current)
+        if g is not None:
+            g.launches = counted
+        self._graphs[sig] = g
+        while len(self._graphs) > self.KEEP:
+            if self._graphs.popitem(last=False)[1] is not None:
+                current.synchronize()    # its last replay has ended
+        return new, out
 
 
 def run_offline(frames, cfg: AuralizerConfig,

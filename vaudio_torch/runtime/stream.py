@@ -31,14 +31,19 @@ from vaudio_torch.config import AuralizerConfig, LiveParams
 from vaudio_torch.io.sources import own_frame
 from vaudio_torch.runtime.ingest import HostBuffers, host_frames, to_device
 from vaudio_torch.runtime.ringbuffer import make_ring_buffer
+from vaudio_torch.runtime.step import step_counts
 from vaudio_torch.utils.profiling import span
 
 
 class StreamMetrics:
     """Rolling metrics — the reference's ``processingLatency`` probe and
-    ``availableFrames`` print (SoundEngine.swift:430-445)."""
+    ``availableFrames`` print (SoundEngine.swift:430-445) — and the
+    counters of ``step`` (:func:`runtime.step.step_counts`) since these
+    metrics were made."""
 
-    def __init__(self):
+    def __init__(self, step=None):
+        self._step = step
+        self._step_base = step_counts(step)
         self._lock = threading.Lock()
         self._latencies_ms: list[float] = []
         self.frames_processed = 0    # video frames through the device
@@ -54,6 +59,12 @@ class StreamMetrics:
             self._latencies_ms.append(latency_ms)
             if len(self._latencies_ms) > 1024:
                 del self._latencies_ms[:512]
+
+    def step_counts(self) -> Dict[str, int]:
+        """How often the per-frame step captured a CUDA graph, replayed
+        one and ran eagerly since these metrics were made."""
+        now = step_counts(self._step)
+        return {k: now[k] - self._step_base[k] for k in now}
 
     @property
     def processing_latency_ms(self) -> float:
@@ -144,7 +155,7 @@ class StreamingAuralizer:
                                      cfg.hop_size * cfg.channels,
                                      cfg.warmup_frames,
                                      prefer_native=prefer_native)
-        self.metrics = StreamMetrics()
+        self.metrics = StreamMetrics(self._step)
         self._thread: Optional[threading.Thread] = None
         self._stop_event = threading.Event()
         self._running = False
@@ -197,7 +208,7 @@ class StreamingAuralizer:
         self._running = True
         self._error = None
         # Fresh metrics per run: a restarted stream reports this run only.
-        self.metrics = StreamMetrics()
+        self.metrics = StreamMetrics(self._step)
         self.metrics.start_time = time.monotonic()
         self._thread = threading.Thread(
             target=self._producer_guard, args=(iter(source),), daemon=True)

@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from vaudio_torch import device as pick_device
+from vaudio_torch import device_constant
 from vaudio_torch.config import BESSEL_RATIOS, AuralizerConfig
 from vaudio_torch.dsp.core import find_closest_index, hue_to_f0
 from vaudio_torch.ops.spectrum_kernel import hann_peak_weighted_sum
@@ -133,8 +134,9 @@ def _advance_freqs(hues, cfg: AuralizerConfig, consts: SynthConstants):
         freqs, hue_to_f0(hues, cfg.f0_base, cfg.f0_octaves))]
     ratios = torch.cat([
         consts.harmonic_numbers,
-        torch.as_tensor(np.asarray(BESSEL_RATIOS, np.float32),
-                        device=freqs.device),
+        device_constant("bessel_ratios",
+                        lambda: np.asarray(BESSEL_RATIOS, np.float32),
+                        freqs.device),
     ])                                                       # (32,)
     return f0[..., None] * ratios, float(np.float32(
         2.0 * np.pi * cfg.hop_size / cfg.sample_rate))
@@ -292,7 +294,9 @@ def live_pan_gains(cfg: AuralizerConfig, stereo_width, angles=None,
     f32[S, num_cells, 2]."""
     device = pick_device(device)
     if angles is None:
-        theta = torch.as_tensor(cell_pan_angles(cfg), device=device)
+        theta = device_constant(("pan_angles", cfg.num_cells,
+                                 cfg.grid_size),
+                                lambda: cell_pan_angles(cfg), device)
     else:
         theta = torch.as_tensor(angles, dtype=torch.float32, device=device)
     quarter = float(np.float32(np.pi / 4.0))
@@ -348,7 +352,9 @@ def flatten_partials(pfreq, w_re, w_im, inv_bw, cfg: AuralizerConfig,
         lead + (nc * P,))
     if cfg.channels == 2:
         if pan is None:
-            pan = torch.as_tensor(cell_pan_gains(cfg), device=pfreq.device)
+            pan = device_constant(("pan_gains", cfg.num_cells,
+                                   cfg.grid_size),
+                                  lambda: cell_pan_gains(cfg), pfreq.device)
         if cell_slice is not None:
             start, count = cell_slice
             pan = pan[..., start:start + count, :]

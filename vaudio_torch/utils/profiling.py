@@ -33,7 +33,11 @@ import torch.autograd.profiler as _autograd_profiler
 #:   step, with any engine (ingest of its parameters inside).
 #: * ``vaudio.step.vision``, ``vaudio.step.synth``, ``vaudio.step.dsp``:
 #:   the flagship step's three stages (``frame_step``; ``chunk_pipeline``'s
-#:   pass A, passes B and C1, pass C2).
+#:   pass A, passes B and C1, pass C2).  A graphed step
+#:   (``runtime.step.GraphedStep``) runs them only where it captures.
+#: * ``vaudio.step.replay``: a graphed step's replay: the copies of its
+#:   inputs into the graph's buffers, the graph's launch and the copies of
+#:   its outputs.
 #: * ``vaudio.vision.pool``: the mip pool of one ``frame_stats`` call
 #:   (kernel K1 on the card), inside ``vaudio.step.vision``.
 #: * ``vaudio.vision.stats``: what follows it in that call: K3 where the
@@ -55,7 +59,8 @@ import torch.autograd.profiler as _autograd_profiler
 SPANS = ("vaudio.sonify", "vaudio.ingest.frames", "vaudio.ingest.stage",
          "vaudio.ingest.params",
          "vaudio.step", "vaudio.step.vision", "vaudio.step.synth",
-         "vaudio.step.dsp", "vaudio.vision.pool", "vaudio.vision.stats",
+         "vaudio.step.dsp", "vaudio.step.replay", "vaudio.vision.pool",
+         "vaudio.vision.stats",
          "vaudio.readback", "vaudio.stream.source",
          "vaudio.stream.dispatch", "vaudio.stream.enqueue",
          "vaudio.stream.flush", "vaudio.pod.tick", "vaudio.pod.sources",

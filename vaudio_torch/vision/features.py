@@ -14,6 +14,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from vaudio_torch import device_constant
 from vaudio_torch.config import AuralizerConfig
 from vaudio_torch.ops import pool_kernel, vision_kernel
 from vaudio_torch.utils.profiling import span
@@ -198,9 +199,11 @@ def mip_downsample_planes(planes, level: int, quantize: bool = False,
     if is_u8 and level <= 7:
         return pool_kernel.mip_pool_planes(planes.contiguous(), level, scale)
     dev = planes.device
-    pr = torch.as_tensor(_pool_matrix(h, level) * np.float32(scale),
-                         device=dev)
-    pc = torch.as_tensor(_pool_matrix(w, level), device=dev)
+    pr = device_constant(("pool_matrix", h, level, float(scale)),
+                         lambda: _pool_matrix(h, level) * np.float32(scale),
+                         dev)
+    pc = device_constant(("pool_matrix", w, level, 1.0),
+                         lambda: _pool_matrix(w, level), dev)
     rows = torch.matmul(planes.to(torch.float32).transpose(-1, -2), pr)
     return torch.matmul(rows.transpose(-1, -2), pc)
 
@@ -308,6 +311,12 @@ def _cell_ids_unrotated(shape: Tuple[int, int], grid: int) -> np.ndarray:
     return (row * grid + col).astype(np.int64)
 
 
+def _device_cell_ids(hm: int, wm: int, grid: int, dev) -> torch.Tensor:
+    """:func:`_cell_ids_unrotated` on ``dev``, copied once."""
+    return device_constant(("cell_ids", hm, wm, grid),
+                           lambda: _cell_ids_unrotated((hm, wm), grid), dev)
+
+
 def _cell_tile_bounds(hm: int, wm: int, grid: int):
     """Per-cell pixel rectangles in image orientation: (x_bands, y_bands),
     each a (start, length) pair per band index."""
@@ -351,8 +360,7 @@ def hue_histogram_planes(h, s, i, cfg: AuralizerConfig,
 
     gate = (s > cfg.saturation_gate) & (i > cfg.intensity_gate)
     bin_idx = torch.clamp((h * float(bins - 1)).to(torch.int64), 0, bins - 1)
-    cell_idx = torch.as_tensor(_cell_ids_unrotated((hm, wm), cfg.grid_size),
-                               device=h.device)
+    cell_idx = _device_cell_ids(hm, wm, cfg.grid_size, h.device)
     frame = torch.arange(n_hist // (cells * bins), device=h.device) \
         .reshape(lead + (1, 1))
     flat = (frame * cells + cell_idx) * bins + bin_idx
@@ -417,8 +425,7 @@ def _spatial_cell_stats(modes, cfg: AuralizerConfig):
     lead = modes.shape[:-3]
     cells = cfg.num_cells
     dev = modes.device
-    cell_idx = torch.as_tensor(
-        _cell_ids_unrotated((hm, wm), cfg.grid_size).reshape(-1), device=dev)
+    cell_idx = _device_cell_ids(hm, wm, cfg.grid_size, dev).reshape(-1)
     oh = (cell_idx[:, None] == torch.arange(cells, device=dev)).to(
         torch.float32)                                          # (p, cells)
     counts = torch.sum(oh, dim=0)
