@@ -10,7 +10,10 @@ file names, with the parameters that file gives.
   S sources that cycle one pool from offsets of their own, as fast as the
   pod takes frames; a consumer pulls every slot.
 
-Each driver warms up the shapes its traffic uses, then measures for the
+Each entry builds the model family that the configuration file names
+(:func:`family`) and refuses, before any frame, a program that runs
+another configuration than the file states (:func:`check_runs`).  Each
+driver warms up the shapes its traffic uses, then measures for the
 window, optionally traces a steady sub-window, and returns what the
 window produced for the judge: every stream's (or clip's) PCM with the
 pool index of each of its frames.
@@ -27,6 +30,7 @@ from typing import Callable, Dict, List, Optional
 import numpy as np
 
 from vbench.frames import FramePool
+from vbench.hostload import HostLoad, latency_quarters, quarters
 from vbench.trace import Trace, Tracer
 
 #: Seconds a poll of an empty ring sleeps.
@@ -95,6 +99,27 @@ def program_config(config: Dict):
             LiveParams(**config["live_params"]))
 
 
+def family(config: Dict) -> str:
+    """The model family a configuration file names (its ``model`` key):
+    ``"auralizer"``, the flagship, where it names none."""
+    return config.get("model", "auralizer")
+
+
+def check_runs(model: str, cfg, built) -> None:
+    """Raise ``ValueError`` where the program of family ``model`` built
+    from a configuration file runs another configuration (``built``) than
+    the file's (``cfg``), as a family that coerces a field would: a file
+    states what runs."""
+    differ = [f"{f.name}: the file says {getattr(cfg, f.name)!r}, the "
+              f"program runs {getattr(built, f.name)!r}"
+              for f in dataclasses.fields(cfg)
+              if getattr(cfg, f.name) != getattr(built, f.name)]
+    if differ:
+        raise ValueError(f"the {model} family does not run the "
+                         f"configuration file as written: "
+                         + "; ".join(differ))
+
+
 def make_pool(cell: Cell, frames: int) -> FramePool:
     a = cell.config["auralizer"]
     return FramePool(cell.seed, frames, cell.height, cell.width,
@@ -157,7 +182,10 @@ def clip_schedule(cell: Cell, pool: int):
 def drive_sonify(cell: Cell, pool: FramePool, host: np.ndarray) -> Outcome:
     from vaudio_torch.api import Auralizer
     cfg, params = program_config(cell.config)
-    aur = Auralizer(config=cfg, params=params, device=cell.device)
+    model = family(cell.config)
+    aur = Auralizer(config=cfg, params=params, model=model,
+                    device=cell.device)
+    check_runs(model, cfg, aur.config)
     t = cell.traffic
     _memory_reset(cell)
     ragged = int(t["ragged_of"])
@@ -171,7 +199,9 @@ def drive_sonify(cell: Cell, pool: FramePool, host: np.ndarray) -> Outcome:
     missing: List[str] = []
     attempted = failed = 0
     traced_frames, trace_t0 = 0, None
+    ends: List[float] = []
     setup_s = _setup_s(cell)
+    host_load = HostLoad()
     t_start = time.perf_counter()
     t_end = t_start
     while time.perf_counter() - t_start < cell.seconds:
@@ -191,6 +221,7 @@ def drive_sonify(cell: Cell, pool: FramePool, host: np.ndarray) -> Outcome:
             pcm = None
         t_end = time.perf_counter()
         if pcm is not None:
+            ends.append(t_end)
             clips.append(Judged(key, np.arange(first, first + length),
                                 pcm.reshape(length, cfg.hop_size, -1)))
         if trace_t0 is not None:
@@ -200,11 +231,18 @@ def drive_sonify(cell: Cell, pool: FramePool, host: np.ndarray) -> Outcome:
                 trace_t0 = None
     if trace_t0 is not None:
         tracer.stop(traced_frames)
+    log(host_load.summary())
+    log("frames/s by quarter of the window: " + quarters(
+        ends, t_start, t_end, [len(c.pool_index) for c in clips]))
     memory = _memory_peak(cell)
     del aur
     done = sum(len(c.pool_index) for c in clips)
+    lead = _lead_s(cell)
+    done_lead = sum(len(c.pool_index) for c, e in zip(clips, ends)
+                    if e <= t_start + lead)
     return Outcome(attempted, failed,
                    {"frames_per_s": done / (t_end - t_start),
+                    "frames_per_s.pretrace": done_lead / lead,
                     "setup_s": setup_s}, clips, _traced(tracer), missing,
                    memory)
 
@@ -239,6 +277,15 @@ def _traced(tracer: Optional[Tracer]) -> Optional[Trace]:
         log(f"no complete trace in {tracer.attempts} sub-windows: the "
             "last one's device metrics miss kernels")
     return tracer.trace
+
+
+def _lead_s(cell: Cell) -> float:
+    """Seconds at the window's start before a traced run's profiler
+    starts: the stretch over which the ``*.pretrace`` measures are taken,
+    in every run, so that a traced run reports its speed outside the
+    profiler's windows (the profiler's warm-up in set-up still slows a
+    traced run: compare these only between traced runs)."""
+    return float(cell.traffic["trace_at"]) * cell.seconds
 
 
 class _Consumer(threading.Thread):
@@ -287,8 +334,10 @@ def drive_stream(cell: Cell, pool: FramePool, host: np.ndarray) -> Outcome:
     n_warm = int(t["warmup_frames"])
     n_win = int(round(cell.seconds * fps))
     total = n_warm + n_win
-    aur = Auralizer(config=cfg, params=params, realtime=False,
+    model = family(cell.config)
+    aur = Auralizer(config=cfg, params=params, realtime=False, model=model,
                     device=cell.device)
+    check_runs(model, cfg, aur.config)
     due = np.full(total, np.nan)
     warm_done = threading.Event()
     clock = {"t0": None, "yielded": 0}
@@ -327,6 +376,7 @@ def drive_stream(cell: Cell, pool: FramePool, host: np.ndarray) -> Outcome:
             time.sleep(POLL_S)
         t0 = clock["t0"] or time.perf_counter()
         setup_s = _setup_s(cell) + (t0 - time.perf_counter())
+        host_load = HostLoad()
         if tracer is not None:
             _trace_paced(tracer, t, t0 + t["trace_at"] * cell.seconds,
                          t0 + cell.seconds, lambda: clock["yielded"])
@@ -337,6 +387,7 @@ def drive_stream(cell: Cell, pool: FramePool, host: np.ndarray) -> Outcome:
     finally:
         consumer.stop.set()
         consumer.join(10.0)
+    log(host_load.summary())
     memory = _memory_peak(cell)
     dropped = int(aur.metrics["dropped_frames"])
     error = aur.failure
@@ -355,8 +406,16 @@ def drive_stream(cell: Cell, pool: FramePool, host: np.ndarray) -> Outcome:
         missing.append(f"{total - got} of {total} hops never came")
     measures = {"setup_s": setup_s}
     if len(lat_ms):
+        log("latency p50/p95 ms by quarter of the window: "
+            + latency_quarters(lat_ms))
         measures["latency_p50_ms"] = float(np.percentile(lat_ms, 50))
         measures["latency_p95_ms"] = float(np.percentile(lat_ms, 95))
+        lead = lat_ms[due[n_warm:n_warm + len(lat_ms)]
+                      < t0 + _lead_s(cell)]
+        if len(lead):
+            for q in (50, 95):
+                measures[f"latency_p{q}_ms.pretrace"] = float(
+                    np.percentile(lead, q))
     judged = [Judged("stream", np.arange(got) % pool.n,
                      np.stack(hops) if hops else np.zeros((0,)))]
     return Outcome(n_win, max(0, total - got) + dropped, measures, judged,
@@ -371,17 +430,19 @@ def _sleep_until(t: float) -> None:
 
 def drive_pod(cell: Cell, pool: FramePool, host: np.ndarray) -> Outcome:
     from vaudio_torch.config import LiveParams
-    from vaudio_torch.runtime.engine import AuralizerEngine
+    from vaudio_torch.runtime.engine import make_engine
     from vaudio_torch.runtime.multistream import MultiStreamAuralizer
     cfg, _params = program_config(cell.config)
     t = cell.traffic
     S = int(t["streams"])
     n_warm = int(t["warmup_frames"])
     offsets = cell.rng(2).choice(pool.n, size=S, replace=False)
+    model = family(cell.config)
     pod = MultiStreamAuralizer(
         cfg, n_streams=S,
         params=[LiveParams(**cell.config["live_params"]) for _ in range(S)],
-        realtime=False, engine=AuralizerEngine(cfg, device=cell.device))
+        realtime=False, engine=make_engine(model, cfg, device=cell.device))
+    check_runs(model, cfg, pod.cfg)
     stop = threading.Event()
     yielded = [0] * S
 
@@ -404,12 +465,14 @@ def drive_pod(cell: Cell, pool: FramePool, host: np.ndarray) -> Outcome:
             time.sleep(POLL_S)
         t_start = time.perf_counter()
         setup_s = _setup_s(cell)
+        host_load = HostLoad()
         offered0 = sum(yielded)
         if tracer is not None and pod.is_running:
             _trace_paced(tracer, t, t_start + t["trace_at"] * cell.seconds,
                          t_start + cell.seconds, lambda: sum(yielded))
         t_end = t_start + cell.seconds
         _sleep_until(t_end)
+        log(host_load.summary())
         offered = sum(yielded) - offered0
         stop.set()
         deadline = time.perf_counter() + LATE_S
@@ -431,6 +494,11 @@ def drive_pod(cell: Cell, pool: FramePool, host: np.ndarray) -> Outcome:
     pod.stop()
     done = sum(1 for s in range(S) for x in consumer.times[s]
                if t_start < x <= t_end)
+    lead = _lead_s(cell)
+    done_lead = sum(1 for s in range(S) for x in consumer.times[s]
+                    if t_start < x <= t_start + lead)
+    log("frames/s by quarter of the window: " + quarters(
+        [x for s in range(S) for x in consumer.times[s]], t_start, t_end))
     missing = [f"slot failed: {type(e).__name__}: {e}" for e in errors]
     if dropped:
         missing.append(f"{dropped} frames dropped at the rings")
@@ -440,6 +508,7 @@ def drive_pod(cell: Cell, pool: FramePool, host: np.ndarray) -> Outcome:
               for s in range(S) if consumer.hops[s]]
     return Outcome(offered, dropped + len(errors),
                    {"frames_per_s": done / cell.seconds,
+                    "frames_per_s.pretrace": done_lead / lead,
                     "setup_s": setup_s}, judged, _traced(tracer), missing,
                    memory)
 

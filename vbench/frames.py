@@ -84,21 +84,30 @@ class FramePool:
         self.device = torch.device(device)
         colors, bins_of = mid_bin_colors(bins)
         self.picks = draw_picks(seed, n, grid * grid, bins_of)
-        self._colors = torch.as_tensor(colors, device=self.device)
-        self._picks = torch.as_tensor(self.picks, device=self.device)
-        self._cells = torch.as_tensor(cell_map(height, width, mip, grid),
-                                      device=self.device)
+        self._colors, self._cells_host = colors, cell_map(height, width,
+                                                          mip, grid)
+        self._tables = None
+
+    def release(self) -> None:
+        """Free the device's copy of the pool's tables (the cell map is
+        17 MB at 1080p, 66 MB at 4K); :meth:`on_device` makes it again."""
+        self._tables = None
 
     def on_device(self, index) -> torch.Tensor:
         """Frames ``index`` (a sequence of pool indices) as u8 (len,
         height, width, 3) on the device."""
+        if self._tables is None:
+            self._tables = tuple(torch.as_tensor(a, device=self.device)
+                                 for a in (self._colors, self.picks,
+                                           self._cells_host))
+        colors, picks, cells = self._tables
         idx = torch.as_tensor(np.asarray(index, np.int64),
                               device=self.device)
-        palette = self._colors[self._picks[idx]]          # (B, cells, 3)
+        palette = colors[picks[idx]]                     # (B, cells, 3)
         out = torch.zeros((len(idx), self.height, self.width, 3),
                           dtype=torch.uint8, device=self.device)
-        hc, wc = self._cells.shape
-        out[:, :hc, :wc] = palette[:, self._cells]
+        hc, wc = cells.shape
+        out[:, :hc, :wc] = palette[:, cells]
         return out
 
     def to_host(self, block: int = 32) -> np.ndarray:

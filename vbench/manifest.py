@@ -6,6 +6,14 @@ is ``vbench/traffic/<name>.json``; a cell's limits are
 ``vbench/limits/<cell>.json``; a per-layer metric's reader is
 ``vbench/metrics/<name>.py``.  Adding a configuration, a traffic mix, a
 cell or a metric is adding files and entries: nothing here names one.
+
+A configuration's file may name its model family under a top-level
+``model`` key, a family the program's ``make_engine`` takes
+(``"auralizer"``, ``"orthomodes"``); where it names none, the family is
+``"auralizer"``, the flagship.  Every entry builds that family
+(``vbench/drive.py``), and its file states what the family runs: a field
+the family would change (the mono OrthoModes family's ``channels``)
+fails the run before any frame.
 """
 
 from __future__ import annotations

@@ -104,6 +104,7 @@ def run_cell(cell, entry: Dict, manifest: Dict, root=mf.ROOT) -> Dict:
     t0 = time.perf_counter()
     pool = make_pool(cell, pool_frames(cell))
     host = pool.to_host()
+    pool.release()          # the peak read in the window is the program's
     log(f"pool of {pool.n} frames ({host.nbytes / 1e9:.2f} GB) made and "
         f"copied to the host in {time.perf_counter() - t0:.2f} s, "
         f"{time.time() - (cell.process_start or time.time()):.2f} s "
@@ -132,12 +133,15 @@ def run_cell(cell, entry: Dict, manifest: Dict, root=mf.ROOT) -> Dict:
                                  "failed": outcome.failed,
                                  "metrics": metrics, "device": device}
     if not cell.trace:
+        measures = dict(outcome.measures,
+                        memory_peak_mb=outcome.memory_peak_bytes / 1e6)
         for m in mf.end_to_end(manifest, cell.name):
-            if m["name"] in outcome.measures:
-                metrics[m["name"]] = {"value": outcome.measures[m["name"]],
+            if m["name"] in measures:
+                metrics[m["name"]] = {"value": measures[m["name"]],
                                       "unit": m["unit"]}
     elif outcome.trace is not None:
         tr = outcome.trace
+        tr.measures = dict(outcome.measures)
         for m in mf.per_layer(manifest, cell.name):
             value = mf.metric_reader(m["name"], root)(tr)
             if value is not None:

@@ -32,9 +32,10 @@ def test_the_manifest_resolves_the_config_and_the_cell():
     assert mf.traffic(entry["traffic"])["entry"] == "sonify"
     assert 0 < mf.limits(CELL)["pcm_gap"] < 1e-3
     e2e = [m["name"] for m in mf.end_to_end(manifest, CELL)]
-    assert e2e == ["frames_per_s", "setup_s"]
+    assert e2e == ["setup_s", "memory_peak_mb"]
     layer = {m["name"] for m in mf.per_layer(manifest, CELL)}
-    assert layer == {"device_idle_pct.tput", "h2d_ms_per_frame.tput",
+    assert layer == {"frames_per_s.pretrace", "device_idle_pct.tput",
+                     "h2d_ms_per_frame.tput",
                      "floor_mfu_pct.tput", "ingest_host_ms_per_frame.tput",
                      "step_host_ms_per_frame.tput",
                      "k1_roofline_pct.offline4k",

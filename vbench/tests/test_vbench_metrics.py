@@ -131,3 +131,16 @@ def test_counts_at_1080p():
     assert counts.step_ops(AURALIZER, 1080, 1920) \
         < counts.step_bytes(AURALIZER, 1080, 1920) \
         * counts.F32_OPS_PER_S / counts.HBM_BYTES_PER_S
+
+
+@pytest.mark.parametrize("name", ["frames_per_s", "latency_p50_ms",
+                                  "latency_p95_ms"])
+def test_pretrace_readers(tmp_path, name):
+    """The untraced lead's host-clock measures, read as per-layer metrics;
+    nothing where the run measured none, and never the whole window's."""
+    tr = _trace(tmp_path)
+    assert _read(f"{name}.pretrace", tr) is None
+    tr.measures = {name: 99.0, "setup_s": 3.0}
+    assert _read(f"{name}.pretrace", tr) is None
+    tr.measures[f"{name}.pretrace"] = 12.5
+    assert _read(f"{name}.pretrace", tr) == 12.5

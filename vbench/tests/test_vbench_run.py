@@ -8,6 +8,7 @@ import pytest
 import torch
 
 from tiny import tiny_cell
+from vbench import manifest as mf
 from vbench.run import forbidden_modules, program_origin, run_cell
 
 CELLS = ["offline-1080p", "live-1080p-30fps", "pod-1080p-s8"]
@@ -25,9 +26,14 @@ def test_result_line(capsys):
         assert {"platform", "count", "memory_peak_bytes"} <= set(
             line["device"])
         reported = set(line["metrics"])
+        assert reported == {m["name"] for m in mf.end_to_end(manifest,
+                                                             name)}, name
         assert "setup_s" in reported and len(reported) >= 2, name
-        for m in line["metrics"].values():
-            assert m["value"] > 0 and m["unit"]
+        for key, m in line["metrics"].items():
+            assert m["unit"]
+            # A CPU run has no device allocator: its peak reads 0.
+            assert (m["value"] == 0.0 if key == "memory_peak_mb"
+                    else m["value"] > 0), (name, key)
         gap = line["checks"]["pcm_gap"]
         assert gap["value"] <= gap["limit"]
 
@@ -92,3 +98,22 @@ def test_fault_is_not_correct(monkeypatch, name, fault):
     assert result["checks"]["pcm_gap"]["value"] > \
         result["checks"]["pcm_gap"]["limit"]
     torch.set_num_threads(torch.get_num_threads())
+
+
+@pytest.mark.parametrize("name", CELLS)
+def test_pretrace_measures(name):
+    """Every driver also measures its speed over the window's untraced
+    lead, which a traced run reports per layer: no more frames than the
+    whole window holds, latencies of frames that came."""
+    from vbench.drive import DRIVERS, _lead_s, make_pool, pool_frames
+    cell, _entry, _manifest = tiny_cell(name, seconds=2.0)
+    pool = make_pool(cell, pool_frames(cell))
+    out = DRIVERS[cell.traffic["entry"]](cell, pool, pool.to_host())
+    m = out.measures
+    assert _lead_s(cell) == pytest.approx(0.33 * 2.0)
+    if "frames_per_s" in m:
+        lead_frames = m["frames_per_s.pretrace"] * _lead_s(cell)
+        assert 0 <= lead_frames <= m["frames_per_s"] * cell.seconds * 1.5
+    else:
+        assert 0 < m["latency_p50_ms.pretrace"] \
+            <= m["latency_p95_ms.pretrace"]

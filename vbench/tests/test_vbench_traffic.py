@@ -81,6 +81,10 @@ def test_pool_frames_are_the_seeds():
                        torch.as_tensor(host[[5, 2]]))
     c = FramePool(BIG_SEED + 1, 6, 80, 160, 3, 4, 360, "cpu")
     assert not np.array_equal(host, c.to_host())
+    a.release()                     # the tables are made again on use
+    assert a._tables is None
+    assert torch.equal(a.on_device([5, 2]),
+                       torch.as_tensor(host[[5, 2]]))
 
 
 def test_every_cell_is_one_color():

@@ -52,6 +52,8 @@ class Trace:
     #: have no kernel record on the device.
     launches: int = 0
     lost: int = 0
+    #: The whole window's measures on the host's clock (the driver's).
+    measures: Dict[str, float] = dataclasses.field(default_factory=dict)
 
     @property
     def complete(self) -> bool:
